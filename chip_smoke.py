@@ -240,16 +240,18 @@ def main() -> None:
               f"{int(counts.sum())}, C={C}, max abs err {err:.3e} (depth row "
               f"{err_depth:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         # the work these inputs need: pairs evaluated before each pixel stops,
-        # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair
-        _, n_eval, n_incl = pb._blend_instances_plain(
+        # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
+        # rows the kernel loads (x .. depth, features) of the instances some
+        # pixel evaluates, starts and counts, and the output
+        _, n_eval, n_incl, n_read = pb._blend_instances_plain(
             data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=kw["tiles_x"],
             n_channels=C, tile_w=kw["tile_w"], tile_h=kw["tile_h"])
         ops = 20.0 * n_eval + (2.0 * (C + 2) + 4.0) * n_incl
-        nbytes = data.numel() * 4 + 8 * n_tiles + got.numel() * 4
+        nbytes = (7 + C) * 4 * n_read + 8 * n_tiles + got.numel() * 4
         b_ms, b_by = bound(ops, nbytes)
         print(f"[kernel C blend_fwd] {label} work: {n_eval} (pixel, instance) pairs "
-              f"evaluated, {n_incl} included, {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB, "
-              f"bound {b_ms:.5f} ms ({b_by})")
+              f"evaluated, {n_incl} included, {n_read} instances read, "
+              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})")
         if planar:
             report["blend_fwd"] = dict(
                 name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",

@@ -20,10 +20,11 @@
 // rows: C colours, sum w, sum w depth, final T; the background is added by
 // the caller (finish_planar / finish_tiles).
 //
-// Bound: operations. About 20 fp32 operations per (pixel, instance) pair
-// evaluated plus 2 (C + 2) per included pair (0.1-1 GFLOP per 512^2 frame);
-// the bytes (instance matrix read once, (C + 3) H W floats written) are a
-// few tens of MB.
+// Bound: bytes. The (C + 3) H W fp32 output dominates (about 23 MB for 19
+// channels at 512^2), plus the 7 + C rows of each instance some pixel
+// evaluates; the operations (about 20 fp32 per (pixel, instance) pair
+// evaluated, plus 2 (C + 2) per included pair) come to about 0.06 GFLOP
+// per 512^2 frame of the synthetic serving scene.
 //
 // Design: one block per tile, one thread per pixel (tile_w x tile_h <= 1024
 // threads). Instances are staged through shared memory one batch of P at a

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from mygauhuman_torch.ops.pallas_knn import BIG, knn_small_refs
+from mygauhuman_torch.ops.pallas_knn import argmin_passes, knn_small_refs
 
 
 def _dist2_block(q: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
@@ -50,19 +50,11 @@ def knn(
             row = torch.arange(q0, q0 + q.shape[0], device=refs.device)
             d2 = torch.where(row[:, None] == col[None, :], torch.inf, d2)
         if k <= 3:
-            ds, ids = [], []
-            for _ in range(k):
-                m = d2.min(dim=1, keepdim=True).values
-                i = torch.where(d2 == m, col, R).min(dim=1, keepdim=True).values
-                ds.append(m)
-                ids.append(i)
-                d2 = d2.scatter(1, i, BIG)
-            out_d.append(torch.cat(ds, dim=1))
-            out_i.append(torch.cat(ids, dim=1))
+            d, i = argmin_passes(d2, k)
         else:
             d, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-            out_d.append(d)
-            out_i.append(i)
+        out_d.append(d)
+        out_i.append(i)
     return torch.cat(out_d), torch.cat(out_i).to(torch.int32)
 
 

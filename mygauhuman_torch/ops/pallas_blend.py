@@ -82,9 +82,11 @@ def row_mode_supported(n_tiles: int, tiles_x: int, tile_w: int, tile_h: int) -> 
 
 def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                            n_channels, tile_w, tile_h, chunk_tiles=64):
-    """Tile-major [T, C+3, P] plain version, plus the number of (pixel,
-    instance) pairs a sequential per-pixel loop evaluates before each pixel
-    stops and the number it includes (the work these inputs need)."""
+    """Tile-major [T, C+3, P] plain version, plus the work these inputs
+    need: the (pixel, instance) pairs a sequential per-pixel loop evaluates
+    before each pixel stops, the pairs it includes, and the instances that
+    must be read (each tile's prefix up to the last one any pixel
+    evaluates)."""
     P = tile_w * tile_h
     C = n_channels
     ns = data.shape[1]
@@ -92,6 +94,7 @@ def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
     out = torch.empty((n_tiles, C + 3, P), dtype=torch.float32, device=dev)
     n_eval = 0
     n_incl = 0
+    n_read = 0
     for t0 in range(0, n_tiles, chunk_tiles):
         t1 = min(t0 + chunk_tiles, n_tiles)
         cnt = counts[t0:t1].long()
@@ -109,14 +112,17 @@ def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                                 d_sum[:, None], final_t[:, None]], dim=1)
         n_eval += int(evaluated.sum())
         n_incl += int(include.sum())
-    return out, n_eval, n_incl
+        # a pixel evaluates a prefix of its slice (T only falls), so the
+        # instances any pixel evaluates are a prefix too
+        n_read += int(evaluated.any(dim=2).sum())
+    return out, n_eval, n_incl, n_read
 
 
 def blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                           n_channels, tile_w=16, tile_h=16, planar=False):
     """Plain PyTorch version of kernel C: tile-major [T, C+3, P] or, with
     planar=True, [C+3, (T / tiles_x) tile_h, tiles_x tile_w]."""
-    out, _, _ = _blend_instances_plain(
+    out, _, _, _ = _blend_instances_plain(
         data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=tiles_x,
         n_channels=n_channels, tile_w=tile_w, tile_h=tile_h)
     if not planar:

@@ -16,6 +16,24 @@ BIG = 3e38
 QUERY_BLOCK = 4096   # plain version: rows of the distance matrix at a time
 
 
+def argmin_passes(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """k passes of (row minimum, first index holding it) over d2 [Q, R],
+    each masking its pick with BIG: ascending, ties to the lower index
+    (argmin's tie-break is not documented for every backend, so take it
+    explicitly). Returns (dists2 [Q, k], idx [Q, k] int64)."""
+    R = d2.shape[1]
+    col = torch.arange(R, device=d2.device)
+    ds, ids = [], []
+    for j in range(k):
+        m = d2.min(dim=1, keepdim=True).values
+        idx = torch.where(d2 == m, col, R).min(dim=1, keepdim=True).values
+        ds.append(m)
+        ids.append(idx)
+        if j + 1 < k:
+            d2 = d2.scatter(1, idx, BIG)
+    return torch.cat(ds, dim=1), torch.cat(ids, dim=1)
+
+
 def knn_small_refs_plain(
     queries: torch.Tensor,
     refs: torch.Tensor,
@@ -44,18 +62,9 @@ def knn_small_refs_plain(
             row = torch.arange(q0, q0 + q.shape[0], device=refs.device)
             d2 = torch.where(row[:, None] == col[None, :],
                              torch.full_like(d2, BIG), d2)
-        ds, ids = [], []
-        for j in range(k):
-            m = d2.min(dim=1, keepdim=True).values
-            # first occurrence of the minimum (argmin's tie-break is not
-            # documented for every backend, so take it explicitly)
-            idx = torch.where(d2 == m, col, R).min(dim=1, keepdim=True).values
-            ds.append(m)
-            ids.append(idx)
-            if j + 1 < k:
-                d2 = d2.scatter(1, idx, BIG)
-        out_d.append(torch.cat(ds, dim=1))
-        out_i.append(torch.cat(ids, dim=1))
+        d, i = argmin_passes(d2, k)
+        out_d.append(d)
+        out_i.append(i)
     return torch.cat(out_d), torch.cat(out_i).to(torch.int32)
 
 
