@@ -18,3 +18,12 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
             "device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def exact_convs():
+    """cuDNN settings for the port's convolutions (SSIM, LPIPS): full fp32
+    (no TF32, which cuDNN enables by default) and deterministic algorithms,
+    so a step run twice gives the same bits. Hold it around the forward and
+    the backward: cuDNN reads the flags when each convolution runs."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)

@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
+from mygauhuman_torch.eval.lpips import LPIPSParams
 from mygauhuman_torch.models.gaussians import GaussianParams, GaussianState
 from mygauhuman_torch.models.smpl import SMPLModel, model_from_arrays
+from mygauhuman_torch.train.optim import TrainableParams
 
 
 def tensor_tree(tree, device: str | torch.device = DEFAULT_DEVICE):
@@ -47,3 +49,25 @@ def smpl_model(model, device: str | torch.device = DEFAULT_DEVICE) -> SMPLModel:
               for f in ("v_template", "shapedirs", "posedirs", "j_regressor", "weights")}
     return model_from_arrays(arrays, np.asarray(model.parents),
                              np.asarray(model.faces), device)
+
+
+def trainable_params(params, device: str | torch.device = DEFAULT_DEVICE) -> TrainableParams:
+    """TrainableParams from the JAX package's TrainableParams, or from any
+    object with `gaussians` (or a TrainState's `gauss.params`),
+    `pose_refiner` and `lbs_offset` (numpy leaves; the MLPs as dict trees)."""
+    dev = resolve_device(device)
+    gp = params.gaussians if hasattr(params, "gaussians") else params.gauss.params
+    return TrainableParams(
+        gaussians=GaussianParams(**{f: tensor_tree(getattr(gp, f), dev)
+                                    for f in GaussianParams._fields}),
+        pose_refiner=tensor_tree(params.pose_refiner, dev),
+        lbs_offset=tensor_tree(params.lbs_offset, dev))
+
+
+def lpips_params(params, device: str | torch.device = DEFAULT_DEVICE) -> LPIPSParams:
+    """LPIPSParams from the JAX package's (numpy leaves): conv weights
+    [kh, kw, cin, cout] become PyTorch's [cout, cin, kh, kw]."""
+    dev = resolve_device(device)
+    convs = tuple({"w": tensor_tree(np.transpose(np.asarray(c["w"]), (3, 2, 0, 1)), dev),
+                   "b": tensor_tree(c["b"], dev)} for c in params.convs)
+    return LPIPSParams(convs=convs, lins=tuple(tensor_tree(x, dev) for x in params.lins))

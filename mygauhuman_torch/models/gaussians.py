@@ -1,9 +1,15 @@
 """Gaussian scene model: fixed-capacity tensors + an alive mask.
 
-Port of the serving part of models/gaussians.py: the state tuples, the
-activations and getters, `create_from_pcd`, `grow_capacity` and
-`compact_state`. Dead slots carry safe fills (log-scale -10, opacity
-logit -10, unit quaternion) and are masked by `alive` in the rasterizer.
+Port of models/gaussians.py: the state tuples, the activations and getters,
+`create_from_pcd`, `grow_capacity`, `compact_state`, and the training part:
+densification statistics, clone / split (and their KL-gated variants),
+`kl_merge`, `prune`, opacity reset and `densify_and_prune`. Dead slots
+carry safe fills (log-scale -10, opacity logit -10, unit quaternion) and
+are masked by `alive` in the rasterizer. New Gaussians are written into
+dead slots found by a stable prefix ranking, never concatenated; every
+event returns the mask of rewritten slots, whose Adam moments the trainer
+resets. Split noise is an input (or drawn from a `torch.Generator`), so a
+test can hand both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -13,11 +19,12 @@ import numpy as np
 import torch
 
 from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
-from mygauhuman_torch.ops.knn import mean_knn_dist2
+from mygauhuman_torch.ops.knn import knn, mean_knn_dist2
 from mygauhuman_torch.ops.sh import num_sh_coeffs, rgb2sh
 from mygauhuman_torch.utils.transforms import (
     covariance6_from_scaling_rotation,
     inverse_sigmoid,
+    quat_to_rotmat,
     quat_to_rotmat_cols,
 )
 
@@ -52,6 +59,10 @@ class GaussianState(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.alive.shape[0]
+
+    @property
+    def num_alive(self) -> torch.Tensor:
+        return self.alive.sum()
 
 
 def get_scaling(p: GaussianParams) -> torch.Tensor:
@@ -219,3 +230,254 @@ def compact_state(state: GaussianState, capacity: int | None = None,
         denom=take(state.denom),
         max_radii2d=take(state.max_radii2d),
     )
+
+
+# ---- densification statistics (reference add_densification_stats) ----------
+
+def add_densification_stats(state: GaussianState, means2d_grad_ndc: torch.Tensor,
+                            radii: torch.Tensor) -> GaussianState:
+    """Accumulate ||dL/dmean2D|| (reference NDC units) of visible Gaussians."""
+    visible = radii > 0
+    norm = torch.sqrt((means2d_grad_ndc * means2d_grad_ndc).sum(dim=-1))
+    zero = torch.zeros_like(norm)
+    return state._replace(
+        xyz_grad_accum=state.xyz_grad_accum + torch.where(visible, norm, zero),
+        denom=state.denom + visible.float(),
+        max_radii2d=torch.where(visible, torch.maximum(state.max_radii2d, radii.float()),
+                                state.max_radii2d),
+    )
+
+
+# ---- slot allocation: scatter selected source rows into dead slots ---------
+
+def _alloc_slots(alive: torch.Tensor, selected: torch.Tensor):
+    """(dest [cap] int32, ok [cap] bool, dropped int32): selected row i with
+    rank r among the selected goes to the (r+1)-th dead slot; rows beyond
+    the free slots are dropped (and counted)."""
+    cap = alive.shape[0]
+    order = torch.argsort(alive.to(torch.uint8), stable=True)   # dead slots first
+    rank = torch.cumsum(selected.to(torch.int64), 0) - 1
+    ok = selected & (rank < (~alive).sum())
+    dest = order[torch.clamp(rank, 0, cap - 1)]
+    dropped = selected.sum() - ok.sum()
+    return dest.to(torch.int32), ok, dropped.to(torch.int32)
+
+
+def _safe_dest(dest: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Destinations with the rows that are not written sent to row `cap`."""
+    return torch.where(ok, dest, ok.shape[0]).long()
+
+
+def _scatter_params(params: GaussianParams, src_params: GaussianParams,
+                    dest: torch.Tensor, ok: torch.Tensor) -> GaussianParams:
+    """Write src rows (where ok) into the dest slots of every leaf. Rows not
+    written go to a scratch row past the end, which is dropped."""
+    idx = _safe_dest(dest, ok)
+
+    def scat(leaf, src):
+        out = torch.cat([leaf, leaf[:1]], dim=0)
+        out[idx] = src
+        return out[:-1]
+
+    return GaussianParams(*(scat(a, b) for a, b in zip(params, src_params)))
+
+
+def _written_mask(dest: torch.Tensor, ok: torch.Tensor, cap: int) -> torch.Tensor:
+    m = torch.zeros(cap + 1, dtype=torch.bool, device=ok.device)
+    m[_safe_dest(dest, ok)] = True
+    return m[:cap]
+
+
+# ---- densify / prune: state -> (state, written mask, dropped) --------------
+
+def _avg_grads(state: GaussianState) -> torch.Tensor:
+    g = state.xyz_grad_accum / torch.clamp(state.denom, min=1e-12)
+    return torch.where(state.denom > 0, g, torch.zeros_like(g))
+
+
+def _clone(state: GaussianState, selected: torch.Tensor):
+    dest, ok, dropped = _alloc_slots(state.alive, selected)
+    params = _scatter_params(state.params, state.params, dest, ok)
+    written = _written_mask(dest, ok, state.capacity)
+    return state._replace(params=params, alive=state.alive | written), written, dropped
+
+
+def densify_and_clone(state: GaussianState, grad_threshold: float, scene_extent: float,
+                      percent_dense: float = 0.01):
+    """Copy small high-gradient Gaussians (gaussian_model.py:546-564)."""
+    small = get_scaling(state.params).max(dim=1).values <= percent_dense * scene_extent
+    return _clone(state, state.alive & (_avg_grads(state) >= grad_threshold) & small)
+
+
+def _split(state: GaussianState, selected: torch.Tensor, noise: torch.Tensor):
+    """Resample each selected Gaussian into n = noise.shape[0] Gaussians at
+    noise-scaled offsets with scale / (0.8 n); the original dies."""
+    p = state.params
+    n_split = noise.shape[0]
+    offsets = torch.einsum("cij,ncj->nci", quat_to_rotmat(p.rotation),
+                           noise * get_scaling(p)[None])
+    new_scaling = p.scaling - torch.log(torch.tensor(0.8 * n_split))
+    alive = state.alive & ~selected
+    written_all = torch.zeros_like(alive)
+    dropped_all = torch.zeros((), dtype=torch.int32, device=alive.device)
+    params = p
+    for i in range(n_split):
+        src = params._replace(xyz=p.xyz + offsets[i], scaling=new_scaling)
+        dest, ok, dropped = _alloc_slots(alive, selected)
+        params = _scatter_params(params, src, dest, ok)
+        w = _written_mask(dest, ok, state.capacity)
+        alive = alive | w
+        written_all = written_all | w
+        dropped_all = dropped_all + dropped
+    return state._replace(params=params, alive=alive), written_all, dropped_all
+
+
+def densify_and_split(state: GaussianState, grad_threshold: float, scene_extent: float,
+                      noise: torch.Tensor, percent_dense: float = 0.01):
+    """Split big high-gradient Gaussians (gaussian_model.py:517-544). noise:
+    [n_split, cap, 3] standard normal."""
+    big = get_scaling(state.params).max(dim=1).values > percent_dense * scene_extent
+    return _split(state, state.alive & (_avg_grads(state) >= grad_threshold) & big, noise)
+
+
+def kl_div_diag(mu0, rot0_q, scale0, mu1, rot1_q, scale1) -> torch.Tensor:
+    """Closed-form KL(N0 || N1) for quaternion-rotated diagonal covariances
+    (gaussian_model.py:740-762)."""
+    R0 = quat_to_rotmat(rot0_q)
+    R1 = quat_to_rotmat(rot1_q)
+    cov0 = torch.einsum("nij,nj,nkj->nik", R0, scale0 ** 2, R0)
+    cov1_inv = torch.einsum("nij,nj,nkj->nik", R1, 1.0 / (scale1 ** 2 + 1e-12), R1)
+    dmu = mu0 - mu1
+    t0 = torch.einsum("nij,nji->n", cov1_inv, cov0)
+    t1 = torch.einsum("ni,nij,nj->n", dmu, cov1_inv, dmu)
+    t2 = torch.log((scale1 / torch.clamp(scale0, min=1e-12)) ** 2).sum(dim=1)
+    return 0.5 * (t0 + t1 + t2 - 3.0)
+
+
+def _neighbor_kl(state: GaussianState):
+    """KL to each Gaussian's nearest alive neighbour (self excluded)."""
+    p = state.params
+    far = torch.where(state.alive[:, None], p.xyz, torch.full_like(p.xyz, 1e6))
+    _, idx = knn(far, far, k=2)
+    nn = idx[:, 1].long()
+    scales = get_scaling(p)
+    return kl_div_diag(p.xyz, p.rotation, scales, p.xyz[nn], p.rotation[nn], scales[nn]), nn
+
+
+def kl_densify_and_clone(state, grad_threshold, scene_extent, kl_threshold=0.4,
+                         percent_dense=0.01):
+    """Clone gated also by KL(neighbour) > threshold (gaussian_model.py:570-610)."""
+    kl, _ = _neighbor_kl(state)
+    small = get_scaling(state.params).max(dim=1).values <= percent_dense * scene_extent
+    return _clone(state, state.alive & (_avg_grads(state) >= grad_threshold) & small
+                  & (kl > kl_threshold))
+
+
+def kl_densify_and_split(state, grad_threshold, scene_extent, noise, kl_threshold=0.4,
+                         percent_dense=0.01):
+    """Split gated also by KL(neighbour) > threshold (gaussian_model.py:618-666)."""
+    kl, _ = _neighbor_kl(state)
+    big = get_scaling(state.params).max(dim=1).values > percent_dense * scene_extent
+    return _split(state, state.alive & (_avg_grads(state) >= grad_threshold) & big
+                  & (kl > kl_threshold), noise)
+
+
+def kl_merge(state, grad_threshold, scene_extent, kl_threshold=0.1, percent_dense=0.01):
+    """Replace each near-duplicate neighbour pair (KL < threshold) by its
+    midpoint Gaussian and kill both (the working form of
+    gaussian_model.py:670-708)."""
+    kl, nn = _neighbor_kl(state)
+    p = state.params
+    cap = state.capacity
+    ids = torch.arange(cap, device=nn.device)
+    small = get_scaling(p).max(dim=1).values <= percent_dense * scene_extent
+    cand = state.alive & (_avg_grads(state) >= grad_threshold) & small & (kl < kl_threshold)
+    # one merge per symmetric pair: keep i only if i < nn[i] and both are candidates
+    selected = cand & cand[nn] & (nn != ids) & (ids < nn)
+
+    def mid(leaf):
+        return 0.5 * (leaf + leaf[nn])
+
+    scales = get_scaling(p)
+    src = GaussianParams(
+        xyz=mid(p.xyz), features_dc=mid(p.features_dc), features_rest=mid(p.features_rest),
+        scaling=torch.log(torch.clamp(0.5 * (scales + scales[nn]), min=1e-12))
+        - torch.log(torch.tensor(0.8)),
+        rotation=mid(p.rotation), opacity=mid(p.opacity), normal=mid(p.normal),
+        albedo=mid(p.albedo), roughness=mid(p.roughness))
+    kill = selected | _written_mask(nn, selected, cap)
+    alive = state.alive & ~kill
+    dest, ok, dropped = _alloc_slots(alive, selected)
+    params = _scatter_params(p, src, dest, ok)
+    written = _written_mask(dest, ok, cap)
+    return state._replace(params=params, alive=alive | written), written, dropped
+
+
+def prune(state: GaussianState, min_opacity: float, scene_extent: float,
+          max_screen_size: float | None, smpl_vertices: torch.Tensor | None = None,
+          smpl_dist_threshold: float = 0.05) -> GaussianState:
+    """Kill low-opacity / oversized / far-from-SMPL Gaussians
+    (gaussian_model.py:710-736)."""
+    p = state.params
+    mask = get_opacity(p)[:, 0] < min_opacity
+    if max_screen_size:
+        mask = mask | (state.max_radii2d > max_screen_size)
+        mask = mask | (get_scaling(p).max(dim=1).values > 0.1 * scene_extent)
+    if smpl_vertices is not None:
+        d2, _ = knn(p.xyz, smpl_vertices, k=1)
+        mask = mask | (d2[:, 0] > smpl_dist_threshold ** 2)
+    return state._replace(alive=state.alive & ~mask)
+
+
+def reset_opacity(state: GaussianState) -> GaussianState:
+    """Clamp opacity to <= 0.01 (gaussian_model.py:348-351)."""
+    p = state.params
+    return state._replace(params=p._replace(
+        opacity=inverse_sigmoid(torch.clamp(get_opacity(p), max=0.01))))
+
+
+def reset_densification_stats(state: GaussianState) -> GaussianState:
+    z = torch.zeros_like(state.xyz_grad_accum)
+    return state._replace(xyz_grad_accum=z, denom=z.clone(), max_radii2d=z.clone())
+
+
+def densify_and_prune(state: GaussianState, generator: torch.Generator | None, *,
+                      max_grad: float, min_opacity: float, extent: float,
+                      max_screen_size: float = 0.0, max_screen_size_on: bool = False,
+                      kl_threshold: float = 0.4, smpl_vertices: torch.Tensor | None = None,
+                      use_kl: bool = False, percent_dense: float = 0.01,
+                      noise: torch.Tensor | None = None):
+    """One densification event (reference densify_and_prune, :710-736).
+
+    The split noise [2, cap, 3] is `noise` when given, else drawn from
+    `generator` (a CPU generator, so a CPU and a CUDA run draw the same
+    numbers). Returns (state, written, info): `written` marks the slots
+    whose Adam moments must be reset, `info` the event's counters (0-d
+    tensors: cloned, split_new, merged, dropped, pruned, alive, grew)."""
+    if noise is None:
+        noise = torch.randn((2, state.capacity, 3), generator=generator)
+    noise = noise.to(state.alive.device)
+    alive_before = state.alive.sum()
+    if use_kl:
+        state, w1, d1 = kl_densify_and_clone(state, max_grad, extent, kl_threshold,
+                                             percent_dense)
+        state, w2, d2 = kl_densify_and_split(state, max_grad, extent, noise, kl_threshold,
+                                             percent_dense)
+        state, w3, d3 = kl_merge(state, max_grad, extent, 0.1, percent_dense)
+        written = w1 | w2 | w3
+        info = {"cloned": w1.sum(), "split_new": w2.sum(), "merged": w3.sum(),
+                "dropped": d1 + d2 + d3}
+    else:
+        state, w1, d1 = densify_and_clone(state, max_grad, extent, percent_dense)
+        state, w2, d2 = densify_and_split(state, max_grad, extent, noise, percent_dense)
+        written = w1 | w2
+        info = {"cloned": w1.sum(), "split_new": w2.sum(),
+                "merged": torch.zeros((), dtype=torch.int64, device=written.device),
+                "dropped": d1 + d2}
+    alive_grown = state.alive.sum()
+    state = prune(state, min_opacity, extent, max_screen_size if max_screen_size_on else None,
+                  smpl_vertices)
+    info["pruned"] = alive_grown - state.alive.sum()
+    info["alive"] = state.alive.sum()
+    info["grew"] = state.alive.sum() - alive_before
+    return reset_densification_stats(state), written, info

@@ -37,6 +37,7 @@ SOURCES = {
     # so contraction buys nothing)
     "deform": ("deform.cu", ["-fmad=false"]),
     "blend_fwd": ("blend_fwd.cu", []),
+    "blend_bwd": ("blend_bwd.cu", []),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "blend_fwd": ("blend_fwd", [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
                                 _PTR]),
+    "blend_bwd": ("blend_bwd", [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                _INT, _INT, _PTR, _INT, _PTR, _PTR]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

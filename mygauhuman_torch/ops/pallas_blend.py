@@ -1,6 +1,7 @@
-"""Forward blend over the depth-sorted instance list: kernel C.
+"""Blend over the depth-sorted instance list: kernel C, and the autograd
+wrapper whose backward is kernel D.
 
-Port of ops/pallas_blend.py, forward only. Binning's depth-sorted
+Port of ops/pallas_blend.py. Binning's depth-sorted
 (tile, Gaussian) list is gathered once into the instance matrix
 [8 + ceil8(C), NS]:
 
@@ -13,8 +14,10 @@ on CUDA tensors and `blend_instances_plain`, the masked-cumprod spec over
 the same slices, on CPU tensors. Output rows: C colours, sum w, sum w depth,
 final T; `finish_planar` / `finish_tiles` add the background.
 
-The kernel has no backward yet: on CUDA with grad mode on, `blend_pallas`
-refuses inputs that require grad.
+`blend_pallas` differentiates with respect to the per-Gaussian inputs: its
+backward runs kernel D (`ops/pallas_blend_bwd.py`) for per-instance gradient
+rows and sums them per Gaussian itself, in a fixed order, so autograd never
+differentiates the instance gather (whose CUDA backward would use atomics).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops.blend import BlendOutput, composite, tile_pixels
 
 HDR = 8            # header rows before the feature rows
-MAX_CHANNELS = 32  # kernel C's register accumulator width
+MAX_CHANNELS = 32  # kernels C and D's register accumulator width
 SMEM_LIMIT = 48 * 1024
 
 
@@ -237,25 +240,80 @@ def blend_pallas_raw(inst: InstanceData, bg, *, width, height, n_channels,
                         height=height, tile_w=tile_w, tile_h=tile_h)
 
 
+def _tile_major(x, th, tw, tile_h, tile_w):
+    """[H, W, C] -> [T, P, C] (the inverse of finish_tiles' assembly)."""
+    H, W = x.shape[:2]
+    x = torch.nn.functional.pad(x, (0, 0, 0, tw * tile_w - W, 0, th * tile_h - H))
+    x = x.reshape(th, tile_h, tw, tile_w, x.shape[-1])
+    return x.permute(0, 2, 1, 3, 4).reshape(th * tw, tile_h * tile_w, -1)
+
+
+def per_gaussian_rows(rows, sorted_rank, rank, n, max_tiles_per_gaussian):
+    """Sum per-instance rows [NS, G] per Gaussian -> [n, G] in id order.
+
+    Instances are grouped by depth rank with a stable sort; a Gaussian has
+    at most max_tiles_per_gaussian instances (binning emits that many slots
+    per Gaussian), so its rows land in a dense [n, S, G] block and are
+    summed over S in a fixed order. No atomics: the same bits on every run."""
+    S = max_tiles_per_gaussian
+    ns, g = rows.shape
+    key, perm = torch.sort(sorted_rank.long(), stable=True)
+    slot = torch.arange(ns, device=rows.device) - torch.searchsorted(key, key)
+    dense = rows.new_zeros((n * S, g))
+    dense[key * S + slot] = rows[perm]
+    return dense.view(n, S, g).sum(dim=1)[rank.long()]
+
+
+class _BlendPallas(torch.autograd.Function):
+    """Forward: kernel C. Backward: the background terms, kernel D over the
+    tile-major cotangents, then the per-Gaussian reduction."""
+
+    @staticmethod
+    def forward(ctx, sorted_rank, order, rank, starts, counts, means2d, conics,
+                opacities, features, depths, bg, width, height, tile_w, tile_h,
+                max_tiles_per_gaussian):
+        inst = build_instance_data(sorted_rank, starts, counts, means2d, conics,
+                                   opacities, depths, features, order=order)
+        image, alpha, depth, final_t = blend_pallas_raw(
+            inst, bg.float(), width=width, height=height, n_channels=features.shape[-1],
+            tile_w=tile_w, tile_h=tile_h)
+        ctx.save_for_backward(inst.data, sorted_rank, rank, starts, counts, bg, final_t)
+        ctx.geom = (width, height, tile_w, tile_h, max_tiles_per_gaussian,
+                    means2d.shape[0], features.shape[-1])
+        return image, alpha, depth, final_t
+
+    @staticmethod
+    def backward(ctx, g_image, g_alpha, g_depth, g_final_t):
+        from mygauhuman_torch.ops.pallas_blend_bwd import blend_pallas_bwd_raw
+
+        data, sorted_rank, rank, starts, counts, bg, final_t = ctx.saved_tensors
+        width, height, tile_w, tile_h, S, n, c = ctx.geom
+        bg = bg.float()
+        # colour = raw + final_t * bg
+        dbg = torch.einsum("hw,hwc->c", final_t, g_image)
+        g_final_t_eff = g_final_t + torch.einsum("hwc,c->hw", g_image, bg)
+        c_pad = data.shape[0] - HDR
+        cot = torch.cat([g_image, g_image.new_zeros(g_image.shape[:2] + (c_pad - c,)),
+                         g_alpha[..., None], g_depth[..., None], g_final_t_eff[..., None]],
+                        dim=-1)
+        tw = -(-width // tile_w)
+        th = -(-height // tile_h)
+        rows = blend_pallas_bwd_raw(data, starts, counts,
+                                    _tile_major(cot, th, tw, tile_h, tile_w),
+                                    width=width, height=height, tile_w=tile_w,
+                                    tile_h=tile_h)
+        per_g = per_gaussian_rows(rows, sorted_rank, rank, n, S)
+        return (None, None, None, None, None, per_g[:, 0:2], per_g[:, 2:5], per_g[:, 5],
+                per_g[:, HDR:HDR + c], per_g[:, 6], dbg, None, None, None, None, None)
+
+
 def blend_pallas(sorted_rank, order, rank, starts, counts, means2d, conics,
                  opacities, features, depths, bg, *, width, height,
-                 tile_w=16, tile_h=16) -> BlendOutput:
-    """Forward blend from binning's rank-space lists. `counts` must already
-    be capped at tile_capacity. On CUDA tensors this is kernel C, which has
-    no backward yet, so with grad mode on, inputs that require grad are
-    refused (raised, not detached)."""
-    if means2d.is_cuda and torch.is_grad_enabled():
-        grads = [name for name, t in (("means2d", means2d), ("conics", conics),
-                                      ("opacities", opacities), ("features", features),
-                                      ("depths", depths), ("bg", bg))
-                 if t.requires_grad]
-        if grads:
-            raise RuntimeError(
-                "kernel C is forward-only: " + ", ".join(grads) + " require grad "
-                "(render under torch.no_grad(), or on the CPU for gradients)")
-    inst = build_instance_data(sorted_rank, starts, counts, means2d, conics,
-                               opacities, depths, features, order=order)
-    image, alpha, depth, final_t = blend_pallas_raw(
-        inst, bg.float(), width=width, height=height,
-        n_channels=features.shape[-1], tile_w=tile_w, tile_h=tile_h)
-    return BlendOutput(image=image, alpha=alpha, depth=depth, final_t=final_t)
+                 tile_w=16, tile_h=16, max_tiles_per_gaussian=16) -> BlendOutput:
+    """Differentiable blend from binning's rank-space lists. `counts` must
+    already be capped at tile_capacity, and max_tiles_per_gaussian must be
+    the binning's. Kernels C and D on CUDA tensors, their plain versions on
+    CPU tensors."""
+    return BlendOutput(*_BlendPallas.apply(
+        sorted_rank, order, rank, starts, counts, means2d, conics, opacities, features,
+        depths, bg, width, height, tile_w, tile_h, max_tiles_per_gaussian))

@@ -2,9 +2,11 @@
 
 One multi-channel pass: callers stack their channels as feature columns.
 The blend follows the device of the inputs: CUDA tensors go through kernel
-C (`ops/pallas_blend.py::blend_pallas`, counts capped at tile_capacity as
-the JAX kernel path does), CPU tensors through the masked-cumprod spec
-(`ops/blend.py::blend`, which autograd differentiates).
+C, differentiated by kernel D (`ops/pallas_blend.py::blend_pallas`, counts
+capped at tile_capacity as the JAX kernel path does), CPU tensors through
+the masked-cumprod spec (`ops/blend.py::blend`, which autograd
+differentiates). dL/dmeans2D for the densify statistics is the gradient of
+the explicit `means2d_offset` input (zeros), scaled by densify_grad_scale.
 """
 from __future__ import annotations
 
@@ -78,6 +80,7 @@ def rasterize(
             torch.clamp(bins.counts, max=config.tile_capacity),
             means2d, proj.conics, opacities, features, proj.depths, bg,
             width=width, height=height, tile_w=config.tile_w, tile_h=config.tile_h,
+            max_tiles_per_gaussian=config.max_tiles_per_gaussian,
         )
     else:
         out = blend(
@@ -97,6 +100,12 @@ def rasterize(
         overflow_gauss=bins.overflow_gauss,
         overflow_inst=bins.overflow_inst,
     )
+
+
+def densify_grad_scale(width: int, height: int, device=None) -> torch.Tensor:
+    """Pixel gradients -> the reference's NDC units for the densify
+    threshold: its dL/dmean2D carries the factor 0.5 W (0.5 H)."""
+    return torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32, device=device)
 
 
 def mark_visible(means3d: torch.Tensor, w2c: torch.Tensor, full_proj: torch.Tensor,

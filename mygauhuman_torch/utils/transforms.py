@@ -39,6 +39,11 @@ def _stack33(c: tuple) -> torch.Tensor:
     )
 
 
+def quat_to_rotmat(q: torch.Tensor, normalize_quat: bool = True) -> torch.Tensor:
+    """Quaternion (w, x, y, z) [..., 4] -> rotation matrix [..., 3, 3]."""
+    return _stack33(quat_to_rotmat_cols(q, normalize_quat))
+
+
 def rodrigues(rvec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Axis-angle [..., 3] -> rotation matrix [..., 3, 3] (angle = ||r + eps||)."""
     angle = torch.linalg.vector_norm(rvec + eps, dim=-1, keepdim=True)

@@ -1,4 +1,4 @@
-"""The port's three CUDA kernels against their plain PyTorch versions, and
+"""The port's four CUDA kernels against their plain PyTorch versions, and
 the rules of the kernel wrappers. No JAX here, so on a CUDA machine
 without JAX run
 
@@ -9,7 +9,12 @@ skip without a CUDA card. Tolerances: kernels A and B are built with
 -fmad=false and written op for op as their plain versions, so they must be
 bit-equal; kernel C multiplies T per instance where the plain version sums
 log(1 - alpha), and sums colours sequentially where it uses a matmul, so it
-is held to 1e-4 abs (depth row 1e-3: depths are ~3).
+is held to 1e-4 abs (depth row 1e-3: depths are ~3). Kernel D divides T
+back where its plain version (autograd of kernel C's) differentiates the
+log-space cumsum, so each gradient component is held to 1e-4 of its
+largest plain value + 1e-6; the CUDA gradients of `blend_pallas` to the
+CPU ones within 1e-4 of each leaf's largest value + 1e-6, and two CUDA
+runs to each other bit for bit.
 """
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ import torch
 from mygauhuman_torch.data.camera import make_camera
 from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops import pallas_blend as pb
+from mygauhuman_torch.ops import pallas_blend_bwd as pbb
 from mygauhuman_torch.ops.binning import bin_gaussians
 from mygauhuman_torch.ops.pallas_deform import deform_rows, deform_rows_cuda, deform_rows_plain
 from mygauhuman_torch.ops.pallas_knn import (
@@ -90,6 +96,10 @@ def test_cuda_entries_refuse_cpu_tensors():
     inst, kw = instance_inputs("cpu", 32, 32, n=50, C=4)
     with pytest.raises(ValueError, match="CUDA"):
         pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, 0, **kw)
+    cot = torch.zeros((kw["n_tiles"], 256, inst.data.shape[0] - 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        pbb.blend_tiles_bwd_cuda(inst.data, inst.starts, inst.counts, 0, cot,
+                                 n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -169,18 +179,57 @@ def test_blend_kernel_matches_plain(cuda, w, h):
     assert float(want.max()) > 0.1
 
 
-def test_blend_kernel_refuses_grad(cuda):
-    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), 64, 64, fovx=1.0, fovy=1.0,
-                      device=cuda)
-    feats = torch.rand(20, 3, device=cuda, requires_grad=True)
-    means = torch.randn(20, 3, device=cuda) * 0.3
-    cov6 = torch.tensor([0.01, 0, 0, 0.01, 0, 0.01], device=cuda).expand(20, 6)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        rasterize(means, cov6, torch.full((20,), 0.5, device=cuda), feats, cam.w2c,
-                  cam.full_proj, torch.zeros(3, device=cuda), width=64, height=64,
-                  tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy)
-    with torch.no_grad():
-        out = rasterize(means, cov6, torch.full((20,), 0.5, device=cuda), feats, cam.w2c,
-                        cam.full_proj, torch.zeros(3, device=cuda), width=64, height=64,
-                        tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy)
-    assert torch.isfinite(out.image).all()
+def cotangents(inst, n_tiles, seed=9):
+    rng = np.random.RandomState(seed)
+    cf = inst.data.shape[0] - pb.HDR
+    cot = rng.randn(n_tiles, 256, cf + 3).astype(np.float32)
+    cot[:, :, 19:cf] = 0.0                  # the feature pad carries no cotangent
+    return torch.as_tensor(cot, device=inst.data.device)
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_blend_bwd_kernel_matches_plain(cuda, w, h):
+    inst, kw = instance_inputs(cuda, w, h)
+    cot = cotangents(inst, kw["n_tiles"])
+    for base in (0, kw["tiles_x"]):
+        args = (inst.data, inst.starts, inst.counts, base, cot)
+        got = pbb.blend_tiles_bwd_cuda(*args, n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
+        want = pbb.blend_tiles_bwd_plain(*args, n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
+        torch.cuda.synchronize()
+        tol = 1e-4 * want.abs().max(dim=0).values + 1e-6
+        assert bool(((got - want).abs().max(dim=0).values <= tol).all())
+    assert float(want[:, :7].abs().max()) > 1e-3
+
+
+def rasterize_grads(device, seed=10, w=96, h=80):
+    """Gradients of a rasterized image's weighted sum w.r.t. the means,
+    covariances, opacities, features and background."""
+    rng = np.random.RandomState(seed)
+    n = 400
+    leaves = [torch.as_tensor(a, device=device).requires_grad_(True) for a in (
+        (rng.randn(n, 3) * 0.4).astype(np.float32),
+        np.tile(np.array([0.004, 0.0, 0.0, 0.004, 0.0, 0.004], np.float32), (n, 1)),
+        (rng.rand(n) * 0.9 + 0.05).astype(np.float32),
+        rng.rand(n, 5).astype(np.float32),
+        np.linspace(0.1, 0.9, 5).astype(np.float32))]
+    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), w, h, fovx=1.0, fovy=1.0,
+                      device=device)
+    out = rasterize(*leaves[:4], cam.w2c, cam.full_proj, leaves[4], width=w, height=h,
+                    tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy)
+    g = torch.as_tensor(rng.randn(h, w, 5).astype(np.float32), device=device)
+    loss = (out.image * g).sum() + out.alpha.sum() + 0.3 * out.depth.sum() \
+        + 0.7 * out.final_t.sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def test_blend_pallas_grads_match_cpu_and_are_bit_stable(cuda):
+    """CUDA: kernels C and D; CPU: the spec blend under autograd."""
+    got = rasterize_grads(cuda)
+    again = rasterize_grads(cuda)
+    want = rasterize_grads(torch.device("cpu"))
+    assert cuda_lib.LAUNCHES["blend_bwd"] > 0
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        tol = 1e-4 * float(c.abs().max()) + 1e-6
+        assert float((a.cpu() - c).abs().max()) <= tol
+    assert float(want[0].abs().max()) > 0
