@@ -19,7 +19,8 @@ Phases, each of which must pass (any failure exits non-zero):
      through the deform branch, frames/s;
   5. branch-A training: kernel D against its plain version on the inputs a
      training step's backward gives it (bench point and 208x144), as in
-     phase 2; one step on the card against the same step on the
+     phase 2, and each of its two launches (D1 checkpoints, D2 rows) against
+     its own plain version; one step on the card against the same step on the
      CPU (128^2, capacity 1,024, LPIPS on); the same step twice at the bench
      point, bit-equal; ms/step over 100 steps at the bench point (capacity
      8,192, LPIPS on); a profile of 8 steps; a 60-iteration train_loop with
@@ -34,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import tempfile
 import time
@@ -51,6 +53,8 @@ TRAIN_STEPS = 100          # timed steps at the bench point
 LOOP_ITERS = 60            # the train_loop: densify at 20 and 40, opacity reset at 50
 GRAD_RTOL = 1e-3           # GPU vs CPU step: each gradient leaf within GRAD_RTOL max|CPU|
 KERNEL_D_RTOL = 1e-4       # kernel D vs plain: each component within 1e-4 max|plain| + 1e-6
+CKPT_RTOL = 1e-4           # D1 vs plain: T, T_final relative, chunk sums over the largest
+                           # (the plain T is exp of a fp32 cumsum of up to 1,024 log terms)
 
 
 def require(cond, msg):
@@ -167,24 +171,49 @@ def narrow_batch(scene, cam, b0, cfg, masks):
                       bkgd_mask=bkgd, bound_mask=bnd)
 
 
+def row_errors(got, want):
+    """Per-component max abs error of [NS, D] rows, and the worst one over
+    its tolerance KERNEL_D_RTOL max|want| + 1e-6."""
+    err_rows = (got - want).abs().max(dim=0).values
+    tol = KERNEL_D_RTOL * want.abs().max(dim=0).values + 1e-6
+    return err_rows, tol, float((err_rows / tol).max())
+
+
 def check_kernel_d(label, call, C, report, pb, pbb, main):
-    """Kernel D against its plain version on one captured backward call of a
-    blend with C feature channels."""
+    """Kernel D and its two launches against their plain versions on one
+    captured backward call of a blend with C feature channels."""
     import torch
 
     (data, starts, counts, tile_base, cot), kw = call
-    got = pbb.blend_tiles_bwd_cuda(data, starts, counts, tile_base, cot, **kw)
-    want = pbb.blend_tiles_bwd_plain(data, starts, counts, tile_base, cot, **kw)
+    args = (data, starts, counts, tile_base, cot)
+    got = pbb.blend_tiles_bwd_cuda(*args, **kw)
+    want = pbb.blend_tiles_bwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    err_rows = (got - want).abs().max(dim=0).values            # per component
-    tol = KERNEL_D_RTOL * want.abs().max(dim=0).values + 1e-6
-    worst = float((err_rows / tol).max())
+    err_rows, tol, worst = row_errors(got, want)
     err = float(err_rows.max())
     require(bool(torch.isfinite(got).all()) and worst <= 1.0,
             f"blend_bwd {label}: component errors {err_rows.tolist()} over {tol.tolist()}")
-    ms = cuda_ms(lambda: pbb.blend_tiles_bwd_cuda(data, starts, counts, tile_base, cot, **kw))
-    plain_ms = cuda_ms(lambda: pbb.blend_tiles_bwd_plain(data, starts, counts, tile_base, cot,
-                                                         **kw), reps=2, warmup=1)
+    # D1 against its plain version; D2 against its plain version on D1's checkpoints
+    ck = pbb.blend_bwd_checkpoints_cuda(*args, **kw)
+    ck_want = pbb.blend_bwd_checkpoints_plain(*args, **kw)
+    torch.cuda.synchronize()
+    e1 = pbb.checkpoint_errors(ck, ck_want, counts)
+    require(e1["n_chunks_equal"] and e1["map_equal"] and e1["stop_mismatch"] == 0
+            and max(e1["t_rel"], e1["t_final_rel"], e1["sum_rel"]) <= CKPT_RTOL,
+            f"blend_bwd_ckpt {label}: {e1}")
+    rows = pbb.blend_bwd_rows_cuda(*args, ck, **kw)
+    rows_want = pbb.blend_bwd_rows_plain(*args, ck, **kw)
+    torch.cuda.synchronize()
+    err2_rows, tol2, worst2 = row_errors(rows, rows_want)
+    require(bool(torch.isfinite(rows).all()) and worst2 <= 1.0,
+            f"blend_bwd_rows {label}: component errors {err2_rows.tolist()} over "
+            f"{tol2.tolist()}")
+    ms = cuda_ms(lambda: pbb.blend_tiles_bwd_cuda(*args, **kw))
+    ms1 = cuda_ms(lambda: pbb.blend_bwd_checkpoints_cuda(*args, **kw))
+    ms2 = cuda_ms(lambda: pbb.blend_bwd_rows_cuda(*args, ck, **kw))
+    plain_ms = cuda_ms(lambda: pbb.blend_tiles_bwd_plain(*args, **kw), reps=2, warmup=1)
+    plain1 = cuda_ms(lambda: pbb.blend_bwd_checkpoints_plain(*args, **kw), reps=2, warmup=1)
+    plain2 = cuda_ms(lambda: pbb.blend_bwd_rows_plain(*args, ck, **kw), reps=2, warmup=1)
     cf = data.shape[0] - pb.HDR
     require(cf == -(-C // 8) * 8, f"blend_bwd {label}: {cf} feature rows for C={C}")
     n_tiles = kw["n_tiles"]
@@ -199,20 +228,51 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
         data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=kw["tiles_x"],
         n_channels=cf, tile_w=kw["tile_w"], tile_h=kw["tile_h"])
     n_busy = int((counts > 0).sum())
+    n_chunks = int(ck.n_chunks)
     ops = 40.0 * n_eval + (3.0 * C + 30.0) * n_incl
     nbytes = 2 * (7 + C) * 4 * n_read + n_busy * P * (C + 3) * 4 + 8 * n_tiles
     b_ms, b_by = bound(ops, nbytes)
+    # D1: one pass over the pairs (~20 ops), w q of the included pairs
+    # (2 C + 6); reads the rows and C + 2 cotangent columns, writes two
+    # floats per (chunk, pixel) and stop, T_final per pixel of busy tiles
+    ckpt_bytes = 4 * (2 * n_chunks * P + 2 * n_busy * P)
+    ops1 = 20.0 * n_eval + (2.0 * C + 6.0) * n_incl
+    b1 = bound(ops1, (7 + C) * 4 * n_read + n_busy * P * (C + 2) * 4 + 8 * n_tiles
+               + ckpt_bytes)
+    # D2: the same pairs again with the gradient arithmetic of the included
+    # ones; reads the rows, C + 3 cotangent columns and the checkpoints,
+    # writes the 7 + C gradient rows
+    ops2 = 20.0 * n_eval + (3.0 * C + 30.0) * n_incl
+    b2 = bound(ops2, 2 * (7 + C) * 4 * n_read + n_busy * P * (C + 3) * 4 + 8 * n_tiles
+               + ckpt_bytes)
     print(f"[kernel D blend_bwd] {label}: tiles {n_tiles} ({n_busy} with instances), "
           f"instances {int(counts.sum())} (longest tile {int(counts.max())}), C={C} (Cf={cf}), "
           f"max abs err {err:.3e} (worst component at {worst:.3f} of its tolerance), "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; work: {n_eval} pairs evaluated, "
           f"{n_incl} included, {n_read} instances read, {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})", flush=True)
+    print(f"[kernel D blend_bwd] {label}: D1 checkpoints {ms1:.4f} ms (plain {plain1:.4f} ms, "
+          f"bound {b1[0]:.5f} ms, {b1[1]}; {n_busy} blocks), D2 rows {ms2:.4f} ms (plain "
+          f"{plain2:.4f} ms, bound {b2[0]:.5f} ms, {b2[1]}; {n_chunks} working blocks of "
+          f"{ck.t_start.shape[0]} launched); D1 vs plain: stop mismatches off near-ties "
+          f"{e1['stop_mismatch']}, near-ties {e1['near_ties']}, T rel {e1['t_rel']:.3e}, "
+          f"T_final rel {e1['t_final_rel']:.3e}, chunk sums {e1['sum_rel']:.3e} of the "
+          f"largest; D2 vs plain: max abs err {float(err2_rows.max()):.3e} (worst component "
+          f"at {worst2:.3f} of its tolerance)", flush=True)
     if main:
+        src = "mygauhuman_torch/csrc/blend_bwd.cu"
+        tpu = "mygauhuman_tpu/ops/pallas_blend_bwd.py:51"
         report["blend_bwd"] = dict(
-            name="blend_bwd", route="cuda", source="mygauhuman_torch/csrc/blend_bwd.cu",
-            replaces="mygauhuman_tpu/ops/pallas_blend_bwd.py:51", max_abs_err=err, ms=ms,
+            name="blend_bwd", route="cuda", source=src, replaces=tpu, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        report["blend_bwd_ckpt"] = dict(
+            name="blend_bwd_ckpt", route="cuda", source=src, replaces=tpu,
+            max_abs_err=max(e1["t_rel"], e1["sum_rel"]), ms=ms1, plain_ms=plain1,
+            bound_ms=b1[0], bound_by=b1[1], library_ms=None)
+        report["blend_bwd_rows"] = dict(
+            name="blend_bwd_rows", route="cuda", source=src, replaces=tpu,
+            max_abs_err=float(err2_rows.max()), ms=ms2, plain_ms=plain2, bound_ms=b2[0],
+            bound_by=b2[1], library_ms=None)
 
 
 def train_gpu_vs_cpu(dev):
@@ -366,9 +426,10 @@ def train_bench(scene, cfg, train, dev, report):
               for a, b in windows), flush=True)
     print(f"[train] loss per iteration {np.round(loss, 4).tolist()}")
     print(f"[train] PSNR per iteration {np.round(psnr, 3).tolist()}")
-    for name in ("knn", "deform", "blend_fwd", "blend_bwd"):
+    for name in ("knn", "deform", "blend_fwd", "blend_bwd", "blend_bwd_ckpt", "blend_bwd_rows"):
         require(launches[name] > 0, f"kernel {name} was not launched in the train loop")
-    report["blend_bwd"]["launches"] = launches["blend_bwd"]
+    for name in ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_rows"):
+        report[name]["launches"] = launches[name]
     require(np.isfinite(loss[-1]), "the train loop ended with a non-finite loss")
     # learning is read on the last 10 iterations before the first event: each
     # densify event replaces Gaussians (PSNR dips) and the opacity reset at
@@ -420,9 +481,13 @@ def main() -> None:
     print(f"[setup] kernels built in {time.perf_counter() - t0:.2f} s wall "
           f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})", flush=True)
     for name, log in cuda_lib.BUILD_LOGS.items():
+        entry = ""
         for line in log.splitlines():
+            m = re.search(r"(?:entry )?function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
             if "registers" in line or "spill" in line:
-                print(f"[setup] ptxas {name}: {line.strip()}")
+                print(f"[setup] ptxas {name} {entry}: {line.strip()}")
 
     cfg = RasterizerConfig(tile_capacity=1024, chunk_tiles=64,
                            instance_capacity=4 * BENCH["capacity"])
@@ -724,7 +789,8 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: report[n][k] for k in keys}
-               for n in ("knn", "deform", "blend_fwd", "blend_bwd")]
+               for n in ("knn", "deform", "blend_fwd", "blend_bwd", "blend_bwd_ckpt",
+                         "blend_bwd_rows")]
     print(json.dumps({"kernels": kernels}))
     print(card_line())   # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,14 +36,20 @@ def tile_pixels(tiles: torch.Tensor, tiles_x: int, tile_w: int, tile_h: int):
     return px.float(), py.float()
 
 
-def composite(x, y, cxx, cxy, cyy, op, dep, feat, valid, px, py):
-    """Blend B tiles of K depth-ordered instances each over their P pixels.
+class Transmittance(NamedTuple):
+    """Per (tile, instance, pixel) terms [B, K, P] of the blend, and the
+    final T [B, P]."""
+    a: torch.Tensor         # alpha where valid, else 0
+    ok: torch.Tensor        # valid: in the list, power <= 0, alpha >= 1/255
+    t_before: torch.Tensor  # T before the instance over every valid alpha
+    t_after: torch.Tensor   # T after it
+    include: torch.Tensor
+    final_t: torch.Tensor   # [B, P] T over the included instances
 
-    x..dep, valid: [B, K]; feat: [B, K, C]; px, py: [B, P].
-    Returns (color [B, P, C], w_sum [B, P], d_sum [B, P], final_t [B, P]),
-    without the background term, and the [B, K, P] masks of the pairs a
-    sequential per-pixel loop evaluates (T before the instance >= 1e-4)
-    and includes."""
+
+def transmittance(x, y, cxx, cxy, cyy, op, valid, px, py) -> Transmittance:
+    """Alpha and T of B tiles of K depth-ordered instances over their P
+    pixels (x..op, valid: [B, K]; px, py: [B, P])."""
     dx = x[..., None] - px[:, None, :]          # [B, K, P]
     dy = y[..., None] - py[:, None, :]
     power = (-0.5 * (cxx[..., None] * dx * dx + cyy[..., None] * dy * dy)
@@ -57,14 +63,26 @@ def composite(x, y, cxx, cxy, cyy, op, dep, feat, valid, px, py):
     t_after = torch.exp(cum)
     t_before = torch.exp(cum - l1ma)
     include = ok & (t_after >= 1e-4)
-    w = torch.where(include, a * t_before, torch.zeros_like(a))   # [B, K, P]
+    final_t = torch.exp(torch.where(include, l1ma, torch.zeros_like(l1ma)).sum(dim=1))
+    return Transmittance(a, ok, t_before, t_after, include, final_t)
+
+
+def composite(x, y, cxx, cxy, cyy, op, dep, feat, valid, px, py):
+    """Blend B tiles of K depth-ordered instances each over their P pixels.
+
+    x..dep, valid: [B, K]; feat: [B, K, C]; px, py: [B, P].
+    Returns (color [B, P, C], w_sum [B, P], d_sum [B, P], final_t [B, P]),
+    without the background term, and the [B, K, P] masks of the pairs a
+    sequential per-pixel loop evaluates (T before the instance >= 1e-4)
+    and includes."""
+    tr = transmittance(x, y, cxx, cxy, cyy, op, valid, px, py)
+    w = torch.where(tr.include, tr.a * tr.t_before, torch.zeros_like(tr.a))   # [B, K, P]
 
     color = torch.einsum("bkp,bkc->bpc", w, feat)
     d_sum = torch.einsum("bkp,bk->bp", w, dep)
     w_sum = w.sum(dim=1)
-    final_t = torch.exp(torch.where(include, l1ma, torch.zeros_like(l1ma)).sum(dim=1))
-    evaluated = valid[..., None] & (t_before >= 1e-4)
-    return color, w_sum, d_sum, final_t, evaluated, include
+    evaluated = valid[..., None] & (tr.t_before >= 1e-4)
+    return color, w_sum, d_sum, tr.final_t, evaluated, tr.include
 
 
 def blend(

@@ -13,6 +13,8 @@ wrappers pass it to `check()`, which raises on anything but 0.
 `LAUNCHES` counts kernel launches per kernel name. A wrapper adds one right
 after it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
+Kernel D is two launches, each with its own count (`blend_bwd_ckpt`,
+`blend_bwd_rows`); `blend_bwd` counts whole backward passes (both launched).
 """
 from __future__ import annotations
 
@@ -40,20 +42,26 @@ SOURCES = {
     "blend_bwd": ("blend_bwd.cu", []),
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in (*SOURCES, "blend_bwd_ckpt", "blend_bwd_rows")}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# C signature of each entry point: (symbol, argtypes)
+# C entry points of each library: {symbol: argtypes}
 _SIGNATURES = {
-    "knn": ("knn_small_refs", [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                               _PTR, _PTR, _PTR]),
-    "deform": ("deform_rows", [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]),
-    "blend_fwd": ("blend_fwd", [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
+    "knn": {"knn_small_refs": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                               _PTR, _PTR, _PTR]},
+    "deform": {"deform_rows": [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]},
+    "blend_fwd": {"blend_fwd": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
-                                _PTR]),
-    "blend_bwd": ("blend_bwd", [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                                _INT, _INT, _PTR, _INT, _PTR, _PTR]),
+                                _PTR]},
+    "blend_bwd": {
+        "blend_bwd_ckpt": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _PTR, _PTR],
+        "blend_bwd_rows": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
+                           _PTR, _PTR, _PTR],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -123,10 +131,10 @@ def library(name: str) -> ctypes.CDLL:
         if not out.exists():
             build([name])
         lib = ctypes.CDLL(str(out))
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return _loaded[name]
 

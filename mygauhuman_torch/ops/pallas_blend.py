@@ -301,7 +301,7 @@ class _BlendPallas(torch.autograd.Function):
         rows = blend_pallas_bwd_raw(data, starts, counts,
                                     _tile_major(cot, th, tw, tile_h, tile_w),
                                     width=width, height=height, tile_w=tile_w,
-                                    tile_h=tile_h)
+                                    tile_h=tile_h, n_channels=c)
         per_g = per_gaussian_rows(rows, sorted_rank, rank, n, S)
         return (None, None, None, None, None, per_g[:, 0:2], per_g[:, 2:5], per_g[:, 5],
                 per_g[:, HDR:HDR + c], per_g[:, 6], dbg, None, None, None, None, None)

@@ -9,7 +9,12 @@ instance, [NS, D]:
   0 d_x | 1 d_y | 2 d_cxx | 3 d_cxy | 4 d_cyy | 5 d_op | 6 d_depth | 7 0
   | 8.. d_feat
 
-CUDA tensors go through kernel D (`csrc/blend_bwd.cu`), CPU tensors through
+With `n_channels` = C < Cf the pad rows 8 + C.. are 0 (their cotangent is
+taken as 0). CUDA tensors go through kernel D (`csrc/blend_bwd.cu`), two
+launches: D1 cuts each tile's serial chain at chunks of CHUNK instances
+(`Checkpoints`), D2 replays the chunks in parallel into the rows. Each has
+its plain version here (`blend_bwd_checkpoints_plain`,
+`blend_bwd_rows_plain`); the yardstick of the whole, and the CPU path, is
 `blend_tiles_bwd_plain`, autograd of kernel C's plain version with respect
 to the instance matrix. The TPU kernel's 128-lane pad of the rows is
 dropped. The per-Gaussian reduction of these rows lives with the autograd
@@ -17,9 +22,12 @@ wrapper (`ops/pallas_blend.py::blend_pallas`).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mygauhuman_torch.ops import cuda_lib
+from mygauhuman_torch.ops.blend import tile_pixels, transmittance
 from mygauhuman_torch.ops.pallas_blend import (
     HDR,
     MAX_CHANNELS,
@@ -27,18 +35,41 @@ from mygauhuman_torch.ops.pallas_blend import (
     _blend_instances_plain,
 )
 
+CHUNK = 32            # instances per chunk (csrc/blend_bwd.cu CH)
+ROWS_MAX_PIXELS = 256  # D2's block is one tile (launch bounds)
 
-def _batch(P: int) -> int:
-    """Instances staged per batch: the per-warp partials [P / 32, 7 + Cf, B]
-    stay within the static shared-memory limit."""
-    return min(32, 256 // (P // 32))
+
+class Checkpoints(NamedTuple):
+    """D1's output. Tile t's chunks c < ceil(count_t / chunk) take slots
+    off_t + c, off_t the chunks of the tiles before it, out of G =
+    ceil(NS / chunk) + T slots (enough for disjoint slices)."""
+    t_start: torch.Tensor    # [G, P] T before the chunk (T_final once stopped)
+    chunk_sum: torch.Tensor  # [G, P] sum of w q over the chunk's included instances
+    stop: torch.Tensor       # [T, P] i32 first failing instance (count if none)
+    t_final: torch.Tensor    # [T, P]
+    chunk_map: torch.Tensor  # [G, 2] i32 (tile, chunk) of each slot in use
+    n_chunks: torch.Tensor   # [1] i32 slots in use
+
+
+def max_chunks(ns: int, n_tiles: int, chunk: int = CHUNK) -> int:
+    return -(-ns // chunk) + n_tiles
+
+
+def _cot(cotangents, cf, n_channels):
+    """The cotangents with the feature pad past n_channels set to 0, and C."""
+    C = cf if n_channels is None else n_channels
+    if C < cf:
+        cotangents = cotangents.clone()
+        cotangents[..., C:cf] = 0.0
+    return cotangents, C
 
 
 def blend_tiles_bwd_plain(data, starts, counts, tile_base, cotangents, *, n_tiles,
-                          tiles_x, tile_w=16, tile_h=16):
+                          tiles_x, tile_w=16, tile_h=16, n_channels=None):
     """Plain PyTorch version of kernel D: the gradient of kernel C's plain
     version with respect to `data` at the given cotangents, as [NS, D]."""
     cf = data.shape[0] - HDR
+    cotangents, _ = _cot(cotangents, cf, n_channels)
     with torch.enable_grad():
         d = data.detach().requires_grad_(True)
         out, _, _, _ = _blend_instances_plain(
@@ -50,56 +81,288 @@ def blend_tiles_bwd_plain(data, starts, counts, tile_base, cotangents, *, n_tile
     return g.T.contiguous()
 
 
-def blend_tiles_bwd_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
-                         tiles_x, tile_w=16, tile_h=16):
-    """Launch kernel D; same output as blend_tiles_bwd_plain."""
+def _chunk_layout(counts, n_tiles, chunk):
+    """Chunks per tile, each tile's first slot, and the slots in use."""
+    nch = torch.div(counts.long().clamp(min=0) + chunk - 1, chunk, rounding_mode="floor")
+    off = torch.cumsum(nch, 0) - nch
+    return nch, off, int(nch.sum()) if n_tiles else 0
+
+
+def _tile_group(data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk):
+    """Instance columns of tiles [t0, t1), padded to whole chunks."""
+    ns = data.shape[1]
+    dev = data.device
+    cnt = counts[t0:t1].long().clamp(min=0)
+    nchk = max(-(-int(cnt.max()) // chunk), 1)
+    k = torch.arange(nchk * chunk, device=dev)
+    pos = torch.clamp(starts[t0:t1].long()[:, None] + k[None, :], 0, max(ns - 1, 0))
+    valid = k[None, :] < cnt[:, None]
+    px, py = tile_pixels(torch.arange(t0, t1, device=dev) + tile_base, tiles_x,
+                         tile_w, tile_h)
+    return data[:, pos], valid, pos, k, nchk, px, py
+
+
+def blend_bwd_checkpoints_plain(data, starts, counts, tile_base, cotangents, *, n_tiles,
+                                tiles_x, tile_w=16, tile_h=16, n_channels=None,
+                                chunk=CHUNK, chunk_tiles=64) -> Checkpoints:
+    """Plain PyTorch version of D1, from kernel C's plain per-pixel T (the
+    log-space cumulative product of `ops/blend.py::transmittance`)."""
     P = tile_w * tile_h
-    if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
-        raise ValueError("kernel D takes a float32 CUDA instance matrix [D, NS]")
+    cf = data.shape[0] - HDR
+    cotangents, C = _cot(cotangents.float(), cf, n_channels)
+    dev = data.device
+    G = max_chunks(data.shape[1], n_tiles, chunk)
+    nch_all, off_all, total = _chunk_layout(counts, n_tiles, chunk)
+    if total > G:
+        raise ValueError(f"{total} chunks exceed the {G} slots: tile slices overlap")
+    t_start = torch.zeros((G, P), dtype=torch.float32, device=dev)
+    chunk_sum = torch.zeros((G, P), dtype=torch.float32, device=dev)
+    stop = torch.zeros((n_tiles, P), dtype=torch.int32, device=dev)
+    t_final = torch.ones((n_tiles, P), dtype=torch.float32, device=dev)
+    chunk_map = torch.full((G, 2), -1, dtype=torch.int32, device=dev)
+    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), nch_all)
+    chunk_map[:total, 0] = tiles.int()
+    chunk_map[:total, 1] = (torch.arange(total, device=dev) - off_all[tiles]).int()
+    for t0 in range(0, n_tiles, chunk_tiles):
+        t1 = min(t0 + chunk_tiles, n_tiles)
+        cols, valid, _, k, nchk, px, py = _tile_group(
+            data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
+        tr = transmittance(cols[0], cols[1], cols[2], cols[3], cols[4], cols[5], valid,
+                           px, py)
+        cot = cotangents[t0:t1]
+        q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), cot[..., :C])
+             + cot[:, None, :, cf] + cols[6][..., None] * cot[:, None, :, cf + 1])
+        w = torch.where(tr.include, tr.a * tr.t_before, torch.zeros_like(tr.a))
+        B = t1 - t0
+        sums = (w * q).reshape(B, nchk, chunk, P).sum(dim=2)
+        fail = tr.ok & ~tr.include          # valid but T would fall below 1e-4
+        cnt = counts[t0:t1].long().clamp(min=0)
+        stp = torch.where(fail.any(dim=1), fail.int().argmax(dim=1), cnt[:, None])
+        first = torch.arange(nchk, device=dev) * chunk
+        ts = torch.where(first[None, :, None] < stp[:, None, :], tr.t_before[:, first, :],
+                         tr.final_t[:, None, :])
+        b_idx, c_idx = torch.nonzero(torch.arange(nchk, device=dev)[None, :]
+                                     < nch_all[t0:t1, None], as_tuple=True)
+        slots = off_all[t0:t1][b_idx] + c_idx
+        t_start[slots] = ts[b_idx, c_idx]
+        chunk_sum[slots] = sums[b_idx, c_idx]
+        stop[t0:t1] = stp.int()
+        t_final[t0:t1] = tr.final_t
+    n_chunks = torch.tensor([total], dtype=torch.int32, device=dev)
+    return Checkpoints(t_start, chunk_sum, stop, t_final, chunk_map, n_chunks)
+
+
+def blend_bwd_rows_plain(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints,
+                         *, n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None,
+                         chunk=CHUNK, chunk_tiles=64):
+    """Plain PyTorch version of D2: the rows [NS, D] from the checkpoints.
+    T inside a chunk is the chunk's checkpoint times the chunk's earlier
+    (1 - alpha); S after an instance is the chunk's later w q, then the
+    tile's later chunk sums."""
+    P = tile_w * tile_h
     D, ns = data.shape
     cf = D - HDR
-    if not 1 <= cf <= MAX_CHANNELS:
-        raise ValueError(f"kernel D takes 1..{MAX_CHANNELS} feature rows, got {cf}")
-    if P > 1024 or P % 32:
-        raise ValueError(f"kernel D needs a tile of whole warps (<= 1024 px), got {P}")
+    cotangents, C = _cot(cotangents.float(), cf, n_channels)
+    dev = data.device
+    G = ckpt.t_start.shape[0]
+    nch_all, off_all, _ = _chunk_layout(counts, n_tiles, chunk)
+    grads = torch.zeros((ns, D), dtype=torch.float32, device=dev)
+    for t0 in range(0, n_tiles, chunk_tiles):
+        t1 = min(t0 + chunk_tiles, n_tiles)
+        B = t1 - t0
+        cols, valid, pos, k, nchk, px, py = _tile_group(
+            data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
+        x, y, cxx, cxy, cyy, op, dep = (r[..., None] for r in cols[:7])   # [B, Kp, 1]
+        dx = x - px[:, None, :]
+        dy = y - py[:, None, :]
+        power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
+        e_p = torch.exp(power)
+        raw = op * e_p
+        alpha = torch.clamp(raw, max=0.99)
+        stp = ckpt.stop[t0:t1].long()
+        incl = (valid[..., None] & (power <= 0.0) & (alpha >= 1.0 / 255.0)
+                & (k[None, :, None] < stp[:, None, :]))
+        a = torch.where(incl, alpha, torch.zeros_like(alpha))
+
+        c_ar = torch.arange(nchk, device=dev)
+        in_tile = (c_ar[None, :] < nch_all[t0:t1, None])[..., None]        # [B, nchk, 1]
+        slot = torch.clamp(off_all[t0:t1, None] + c_ar[None, :], max=G - 1)
+        ts = torch.where(in_tile, ckpt.t_start[slot], torch.ones_like(ckpt.t_start[slot]))
+        cs = torch.where(in_tile, ckpt.chunk_sum[slot], torch.zeros_like(ckpt.chunk_sum[slot]))
+        # S after each chunk: the later chunk sums (suffix, no subtraction)
+        s_end = torch.cat([cs.flip(1).cumsum(1).flip(1)[:, 1:],
+                           torch.zeros_like(cs[:, :1])], dim=1)
+
+        cot = cotangents[t0:t1]
+        q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), cot[..., :C])
+             + cot[:, None, :, cf] + dep * cot[:, None, :, cf + 1])
+        shape4 = (B, nchk, chunk, P)
+        one_m = (1.0 - a).reshape(shape4)
+        before = torch.cat([torch.ones_like(one_m[:, :, :1]),
+                            torch.cumprod(one_m, dim=2)[:, :, :-1]], dim=2)
+        t_b = (ts[:, :, None, :] * before).reshape(B, -1, P)
+        w = a * t_b
+        wq = (w * q).reshape(shape4)
+        s_in = torch.cat([wq.flip(2).cumsum(2).flip(2)[:, :, 1:],
+                          torch.zeros_like(wq[:, :, :1])], dim=2)
+        S = (s_end[:, :, None, :] + s_in).reshape(B, -1, P)
+        tail = (ckpt.t_final[t0:t1] * cot[..., cf + 2])[:, None, :]
+        d_a = t_b * q - (S + tail) / torch.clamp(1.0 - alpha, min=1e-6)
+        chain = incl & (raw < 0.99)
+        d_pow = torch.where(chain, d_a * op * e_p, torch.zeros_like(d_a))
+        rows = torch.zeros((B, k.shape[0], D), dtype=torch.float32, device=dev)
+        rows[..., 0] = (d_pow * -(cxx * dx + cxy * dy)).sum(-1)
+        rows[..., 1] = (d_pow * -(cyy * dy + cxy * dx)).sum(-1)
+        rows[..., 2] = (d_pow * (-0.5 * dx * dx)).sum(-1)
+        rows[..., 3] = (d_pow * (-dx * dy)).sum(-1)
+        rows[..., 4] = (d_pow * (-0.5 * dy * dy)).sum(-1)
+        rows[..., 5] = torch.where(chain, d_a * e_p, torch.zeros_like(d_a)).sum(-1)
+        rows[..., 6] = torch.einsum("bkp,bp->bk", w, cot[..., cf + 1])
+        rows[..., HDR:HDR + C] = torch.einsum("bkp,bpc->bkc", w, cot[..., :C])
+        grads[pos[valid]] = rows[valid]
+    return grads
+
+
+def checkpoint_errors(got: Checkpoints, want: Checkpoints, counts) -> dict:
+    """D1's checkpoints against the plain ones where both are defined.
+
+    The kernel's T is kernel C's serial fp32 product; the plain T is the
+    exp of a fp32 log-space cumsum. A pixel whose T lands within rounding of
+    the 1e-4 threshold may stop one instance apart in the two: then the
+    version that included the instance ends with T_final within 1e-4
+    relative of 1e-4 (a near-tie). Returns the slot count and map equality,
+    the stop mismatches that are not near-ties, the near-ties, and off the
+    pixels whose stops differ the largest relative error of T before each
+    chunk and of T_final, and the largest chunk-sum error over the largest
+    chunk sum."""
+    n = int(want.n_chunks)
+    busy = (counts > 0)[:, None]
+    differ = (got.stop != want.stop) & busy
+    tie = torch.minimum(got.t_final, want.t_final) < 1e-4 * (1.0 + 1e-4)
+    keep = ~differ[want.chunk_map[:n, 0].long()]                     # [n, P]
+    t_rel = (got.t_start[:n] - want.t_start[:n]).abs() / want.t_start[:n]
+    f_rel = (got.t_final - want.t_final).abs() / want.t_final
+    s_err = (got.chunk_sum[:n] - want.chunk_sum[:n]).abs()
+    s_max = float(want.chunk_sum[:n].abs().max()) if n else 0.0
+
+    def top(x):
+        return float(x.max()) if x.numel() else 0.0
+
+    return dict(
+        n_chunks_equal=int(got.n_chunks) == n,
+        map_equal=bool(torch.equal(got.chunk_map[:n], want.chunk_map[:n])),
+        stop_mismatch=int((differ & ~tie).sum()), near_ties=int((differ & tie).sum()),
+        t_rel=top(t_rel[keep]), t_final_rel=top(f_rel[busy & ~differ]),
+        sum_rel=top(s_err[keep]) / s_max if s_max > 0 else 0.0)
+
+
+def _kernel_inputs(name, data, starts, counts, cotangents, n_tiles, P, n_channels):
+    """Checked, contiguous inputs of D1 / D2, and (Cf, C)."""
+    if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
+        raise ValueError(f"{name} takes a float32 CUDA instance matrix [D, NS]")
+    cf = data.shape[0] - HDR
+    C = cf if n_channels is None else n_channels
+    if not 1 <= C <= cf <= MAX_CHANNELS:
+        raise ValueError(f"{name} takes 1 <= C <= Cf <= {MAX_CHANNELS} feature rows, "
+                         f"got C={C}, Cf={cf}")
+    if P > ROWS_MAX_PIXELS or P % 32:
+        raise ValueError(f"{name} needs a tile of whole warps (<= {ROWS_MAX_PIXELS} px), "
+                         f"got {P}")
     if (cotangents.shape != (n_tiles, P, cf + 3) or cotangents.dtype != torch.float32
             or cotangents.device != data.device):
         raise ValueError(f"cotangents must be float32 [{n_tiles}, {P}, {cf + 3}] on "
                          f"{data.device}, got {tuple(cotangents.shape)}")
-    for name, t in (("starts", starts), ("counts", counts)):
+    for label, t in (("starts", starts), ("counts", counts)):
         if t.shape != (n_tiles,) or t.device != data.device:
-            raise ValueError(f"{name} must be [{n_tiles}] on {data.device}")
-    B = _batch(P)
-    if (7 + cf) * B * (1 + P // 32) * 4 + 128 > SMEM_LIMIT:
-        raise ValueError(f"tile {tile_w}x{tile_h} with {cf} feature rows exceeds "
-                         "kernel D's shared memory")
-    data = data.contiguous()
-    cotangents = cotangents.contiguous()
-    starts = starts.to(torch.int32).contiguous()
-    counts = counts.to(torch.int32).contiguous()
-    grads = torch.zeros((ns, D), dtype=torch.float32, device=data.device)
-    fn = cuda_lib.library("blend_bwd").blend_bwd
-    err = fn(data.data_ptr(), ns, starts.data_ptr(), counts.data_ptr(), n_tiles,
-             int(tile_base), tiles_x, cf, tile_w, tile_h, cotangents.data_ptr(), B,
-             grads.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream)
-    cuda_lib.check("blend_bwd", err)
+            raise ValueError(f"{label} must be [{n_tiles}] on {data.device}")
+    return (data.contiguous(), starts.to(torch.int32).contiguous(),
+            counts.to(torch.int32).contiguous(), cotangents.contiguous(), cf, C)
+
+
+def blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
+                               tiles_x, tile_w=16, tile_h=16,
+                               n_channels=None) -> Checkpoints:
+    """Launch D1; same output as blend_bwd_checkpoints_plain where that is
+    defined (slots < n_chunks; stop and t_final of tiles that hold
+    instances)."""
+    P = tile_w * tile_h
+    data, starts, counts, cot, cf, C = _kernel_inputs(
+        "kernel D1", data, starts, counts, cotangents, n_tiles, P, n_channels)
+    if (7 + C) * P * 4 > SMEM_LIMIT:
+        raise ValueError(f"tile {tile_w}x{tile_h} with {C} channels exceeds "
+                         "kernel D1's shared memory")
+    G = max_chunks(data.shape[1], n_tiles)
+    dev = data.device
+    ckpt = Checkpoints(
+        t_start=torch.empty((G, P), dtype=torch.float32, device=dev),
+        chunk_sum=torch.empty((G, P), dtype=torch.float32, device=dev),
+        stop=torch.empty((n_tiles, P), dtype=torch.int32, device=dev),
+        t_final=torch.empty((n_tiles, P), dtype=torch.float32, device=dev),
+        chunk_map=torch.empty((G, 2), dtype=torch.int32, device=dev),
+        n_chunks=torch.empty((1,), dtype=torch.int32, device=dev))   # D1's last block
+    fn = cuda_lib.library("blend_bwd").blend_bwd_ckpt
+    err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(), n_tiles,
+             int(tile_base), tiles_x, C, cf, tile_w, tile_h, cot.data_ptr(), G,
+             *(x.data_ptr() for x in ckpt), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check("blend_bwd_ckpt", err)
+    cuda_lib.LAUNCHES["blend_bwd_ckpt"] += 1
+    return ckpt
+
+
+def blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints, *,
+                        n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None):
+    """Launch D2; same output as blend_bwd_rows_plain."""
+    P = tile_w * tile_h
+    data, starts, counts, cot, cf, C = _kernel_inputs(
+        "kernel D2", data, starts, counts, cotangents, n_tiles, P, n_channels)
+    if (7 + C) * CHUNK * (1 + P // 32) * 4 > SMEM_LIMIT:
+        raise ValueError(f"tile {tile_w}x{tile_h} with {C} channels exceeds "
+                         "kernel D2's shared memory")
+    G = max_chunks(data.shape[1], n_tiles)
+    want = ((G, P), (G, P), (n_tiles, P), (n_tiles, P), (G, 2), (1,))
+    for x, shape, dtype in zip(ckpt, want, (torch.float32, torch.float32, torch.int32,
+                                            torch.float32, torch.int32, torch.int32)):
+        if x.shape != shape or x.dtype != dtype or x.device != data.device or \
+                not x.is_contiguous():
+            raise ValueError(f"checkpoints must be D1's for these inputs: {shape} "
+                             f"{dtype}, got {tuple(x.shape)} {x.dtype}")
+    grads = torch.zeros((data.shape[1], data.shape[0]), dtype=torch.float32,
+                        device=data.device)
+    fn = cuda_lib.library("blend_bwd").blend_bwd_rows
+    err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(), n_tiles,
+             int(tile_base), tiles_x, C, cf, tile_w, tile_h, cot.data_ptr(), G,
+             *(x.data_ptr() for x in ckpt), grads.data_ptr(),
+             torch.cuda.current_stream(data.device).cuda_stream)
+    cuda_lib.check("blend_bwd_rows", err)
+    cuda_lib.LAUNCHES["blend_bwd_rows"] += 1
+    return grads
+
+
+def blend_tiles_bwd_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
+                         tiles_x, tile_w=16, tile_h=16, n_channels=None):
+    """Launch kernel D (D1 then D2); same output as blend_tiles_bwd_plain."""
+    kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+              n_channels=n_channels)
+    ckpt = blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, **kw)
+    grads = blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt, **kw)
     cuda_lib.LAUNCHES["blend_bwd"] += 1
     return grads
 
 
 def blend_tiles_bwd_raw(data, starts, counts, tile_base, cotangents, *, n_tiles,
-                        tiles_x, tile_w=16, tile_h=16):
+                        tiles_x, tile_w=16, tile_h=16, n_channels=None):
     """Per-instance gradient rows [NS, D] of tiles [tile_base, tile_base +
     n_tiles) of a tiles_x-wide grid."""
     fn = blend_tiles_bwd_cuda if data.is_cuda else blend_tiles_bwd_plain
     return fn(data, starts, counts, tile_base, cotangents, n_tiles=n_tiles,
-              tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h)
+              tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h, n_channels=n_channels)
 
 
 def blend_pallas_bwd_raw(data, starts, counts, cotangents, *, width, height,
-                         tile_w=16, tile_h=16):
+                         tile_w=16, tile_h=16, n_channels=None):
     """Per-instance gradient rows [NS, D] of a whole width x height image."""
     tw = -(-width // tile_w)
     th = -(-height // tile_h)
     return blend_tiles_bwd_raw(data, starts, counts, 0, cotangents, n_tiles=tw * th,
-                               tiles_x=tw, tile_w=tile_w, tile_h=tile_h)
+                               tiles_x=tw, tile_w=tile_w, tile_h=tile_h,
+                               n_channels=n_channels)

@@ -1,5 +1,6 @@
-"""Port vs JAX package: the blend backward (kernel D's plain version) and the
-differentiable instance-list blend `blend_pallas`.
+"""Port vs JAX package: the blend backward (kernel D's plain version, whole
+and as its two chunked launches D1 / D2) and the differentiable
+instance-list blend `blend_pallas`.
 
 The scene is 2 x 2 tiles of 16 x 16 px with C = 19 channels, built by hand
 so that every branch of the backward is taken: a saturating stack (T falls
@@ -11,7 +12,9 @@ Tolerance: each gradient component within 1e-4 max|JAX| + 1e-6. The JAX
 kernel forms dL/dalpha from an explicit suffix sum while the port's plain
 version is autograd through the log-space cumsum, so the two agree to
 float32 rounding (measured ~1e-7 relative); the bound is the one the chip
-run holds kernel D to.
+run holds kernel D to. The chunked plain pieces are held to the same bound,
+on a variant of the scene with an empty tile and a ragged count, at chunks
+of 4 (so the 24-instance capped tiles span six chunks) and of 32.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +26,14 @@ from mygauhuman_tpu.ops import pallas_blend as jpb
 from mygauhuman_tpu.ops.binning import bin_gaussians as jbin
 from mygauhuman_tpu.ops.pallas_blend_bwd import blend_tiles_bwd_raw as jbwd
 from mygauhuman_torch.ops import pallas_blend as tpb
-from mygauhuman_torch.ops.pallas_blend_bwd import blend_tiles_bwd_plain, blend_tiles_bwd_raw
+from mygauhuman_torch.ops.blend import tile_pixels, transmittance
+from mygauhuman_torch.ops.pallas_blend_bwd import (
+    blend_bwd_checkpoints_plain,
+    blend_bwd_rows_plain,
+    blend_tiles_bwd_plain,
+    blend_tiles_bwd_raw,
+    max_chunks,
+)
 
 torch.set_num_threads(1)
 W = H = 32
@@ -174,3 +184,115 @@ def test_per_gaussian_rows_sums_by_rank():
     per_rank = torch.zeros(n, 7, dtype=torch.float64).index_add_(
         0, sorted_rank.long(), rows.double())
     torch.testing.assert_close(got, per_rank[rank.long()].float(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def chunked(sc):
+    """The scene's instances with tile 1 emptied and tile 2 cut to 21
+    instances, cotangents, and the JAX interpret-mode rows at tile_base 0
+    (4 tiles) and 2 (tiles 2-3)."""
+    b = sc["bins"]
+    counts = jnp.asarray(np.minimum(np.asarray(sc["counts"]), [K, 0, 21, K]).astype(np.int32))
+    inst = jpb.build_instance_data(b.sorted_rank, b.starts, counts,
+                                   jnp.asarray(sc["means2d"]), jnp.asarray(sc["conics"]),
+                                   jnp.asarray(sc["opac"]), jnp.asarray(sc["depths"]),
+                                   jnp.asarray(sc["feats"]), order=b.order)
+    D = inst.data.shape[0]
+    rng = np.random.RandomState(4)
+    cot = rng.randn(4, 256, D - 5).astype(np.float32)
+    cot[:, :, C:D - 8] = 0.0
+    want = {base: np.asarray(jbwd(inst.data, inst.starts[base:], counts[base:],
+                                  jnp.asarray([base], jnp.int32), jnp.asarray(cot[base:]),
+                                  n_tiles=4 - base, tiles_x=2, interpret=True))[:, :D]
+            for base in (0, 2)}
+    return dict(data=t(inst.data), starts=t(inst.starts), counts=t(counts), cot=t(cot),
+                want=want)
+
+
+def _ckpt(ch, chunk, base=0):
+    kw = dict(n_tiles=4 - base, tiles_x=2, chunk=chunk)
+    args = (ch["data"], ch["starts"][base:], ch["counts"][base:], base, ch["cot"][base:])
+    return args, kw, blend_bwd_checkpoints_plain(*args, **kw)
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("base", [0, 2])
+def test_chunked_plain_kernel_d_matches_autograd_and_interpret_pallas(chunked, chunk, base):
+    """D2's plain version over D1's: the whole of kernel D, against
+    autograd of kernel C's plain version and the JAX kernel."""
+    args, kw, ck = _ckpt(chunked, chunk, base)
+    got = blend_bwd_rows_plain(*args, ck, **kw)
+    kw.pop("chunk")
+    close(got.numpy(), blend_tiles_bwd_plain(*args, **kw).numpy())
+    close(got.numpy(), chunked["want"][base])
+    assert float(np.abs(chunked["want"][base][:, :7]).max()) > 1e-3
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+def test_chunked_checkpoints_cover_every_case(chunked, chunk):
+    """The scene has what the chunked replay must handle: an empty tile, a
+    count that is not a multiple of the chunk, pixels that stop inside a
+    chunk and chunks that start after a pixel's stop; the slots follow the
+    tiles in order."""
+    _, _, ck = _ckpt(chunked, chunk)
+    counts = chunked["counts"].long()
+    nch = (counts + chunk - 1) // chunk
+    assert int(ck.n_chunks) == int(nch.sum()) <= max_chunks(chunked["data"].shape[1], 4, chunk)
+    assert (counts == 0).any() and (counts % chunk != 0).any()
+    expect = [(tt, c) for tt in range(4) for c in range(int(nch[tt]))]
+    assert ck.chunk_map[:int(ck.n_chunks)].tolist() == [list(x) for x in expect]
+    busy = counts > 0
+    stop = ck.stop[busy].long()
+    cnt = counts[busy][:, None]
+    assert ((stop < cnt) & (stop % chunk != 0)).any()          # stops inside a chunk
+    if chunk < K:                                               # tiles of several chunks
+        assert ((stop + chunk < cnt) & (stop < cnt)).any()      # chunks after the stop
+    assert (stop == cnt).any()                                  # pixels that never stop
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+def test_checkpoint_t_is_kernel_c_plain_t(chunked, chunk):
+    """T before each chunk is kernel C's plain per-pixel T there, bit for
+    bit, until the pixel stops, then its final T; each chunk sum is the
+    chunk's share of sum w q."""
+    _, _, ck = _ckpt(chunked, chunk)
+    data, starts, counts, cot = (chunked[k] for k in ("data", "starts", "counts", "cot"))
+    cf = data.shape[0] - 8
+    px, py = tile_pixels(torch.arange(4), 2, 16, 16)
+    slot = 0
+    checked = 0
+    for tt in range(4):
+        n = int(counts[tt])
+        if n == 0:
+            continue
+        cols = data[:, int(starts[tt]):int(starts[tt]) + n][:, None]   # [D, 1, n]
+        tr = transmittance(*cols[:6], torch.ones((1, n), dtype=torch.bool),
+                           px[tt:tt + 1], py[tt:tt + 1])
+        g = cot[tt]
+        q = cols[8:8 + C, 0].T @ g[:, :C].T + g[:, cf] + cols[6, 0][:, None] * g[:, cf + 1]
+        w = torch.where(tr.include[0], tr.a[0] * tr.t_before[0], torch.zeros(()))
+        assert torch.equal(ck.t_final[tt], tr.final_t[0])
+        for c in range((n + chunk - 1) // chunk):
+            before = c * chunk < ck.stop[tt]
+            assert torch.equal(ck.t_start[slot][before], tr.t_before[0, c * chunk][before])
+            assert torch.equal(ck.t_start[slot][~before], tr.final_t[0][~before])
+            checked += int(before.sum())
+            torch.testing.assert_close(ck.chunk_sum[slot],
+                                       (w * q)[c * chunk:(c + 1) * chunk].sum(0),
+                                       rtol=1e-6, atol=1e-6)
+            slot += 1
+    assert checked > 0 and slot == int(ck.n_chunks)
+
+
+def test_plain_kernel_d_zeroes_the_feature_pad(chunked):
+    """With n_channels = C the pad rows are 0 whatever the pad cotangent."""
+    data, starts, counts, cot = (chunked[k] for k in ("data", "starts", "counts", "cot"))
+    noisy = cot.clone()
+    noisy[:, :, C:data.shape[0] - 8] = 1.0
+    kw = dict(n_tiles=4, tiles_x=2)
+    got = blend_tiles_bwd_plain(data, starts, counts, 0, noisy, n_channels=C, **kw)
+    assert torch.equal(got, blend_tiles_bwd_plain(data, starts, counts, 0, cot, **kw))
+    ck = blend_bwd_checkpoints_plain(data, starts, counts, 0, noisy, n_channels=C, **kw)
+    rows = blend_bwd_rows_plain(data, starts, counts, 0, noisy, ck, n_channels=C, **kw)
+    assert float(rows[:, 8 + C:].abs().max()) == 0.0
+    close(rows.numpy(), got.numpy())

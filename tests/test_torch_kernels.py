@@ -14,7 +14,11 @@ back where its plain version (autograd of kernel C's) differentiates the
 log-space cumsum, so each gradient component is held to 1e-4 of its
 largest plain value + 1e-6; the CUDA gradients of `blend_pallas` to the
 CPU ones within 1e-4 of each leaf's largest value + 1e-6, and two CUDA
-runs to each other bit for bit.
+runs to each other bit for bit. Kernel D's two launches on their own: D1's
+checkpoints against their plain version by `checkpoint_errors` (equal
+stops off near-ties; T and the chunk sums within CKPT_RTOL, since the plain
+T is the exp of a fp32 cumsum of up to 1,024 log terms), D2's rows against
+their plain version on D1's checkpoints, per component as kernel D.
 """
 import numpy as np
 import pytest
@@ -36,6 +40,7 @@ from mygauhuman_torch.ops.rasterize import rasterize
 from mygauhuman_torch.utils.transforms import covariance6_from_scaling_rotation
 
 torch.set_num_threads(1)
+CKPT_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -100,6 +105,18 @@ def test_cuda_entries_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pbb.blend_tiles_bwd_cuda(inst.data, inst.starts, inst.counts, 0, cot,
                                  n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
+
+
+def test_kernel_d_launches_refuse_cpu_tensors():
+    inst, kw = instance_inputs("cpu", 32, 32, n=50, C=4)
+    cot = torch.zeros((kw["n_tiles"], 256, inst.data.shape[0] - 5))
+    args = (inst.data, inst.starts, inst.counts, 0, cot)
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
+    ckpt = pbb.blend_bwd_checkpoints_plain(*args, **tiles)
+    with pytest.raises(ValueError, match="CUDA"):
+        pbb.blend_bwd_checkpoints_cuda(*args, **tiles)
+    with pytest.raises(ValueError, match="CUDA"):
+        pbb.blend_bwd_rows_cuda(*args, ckpt, **tiles)
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -198,6 +215,38 @@ def test_blend_bwd_kernel_matches_plain(cuda, w, h):
         torch.cuda.synchronize()
         tol = 1e-4 * want.abs().max(dim=0).values + 1e-6
         assert bool(((got - want).abs().max(dim=0).values <= tol).all())
+    assert float(want[:, :7].abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_blend_bwd_ckpt_kernel_matches_plain(cuda, w, h):
+    inst, kw = instance_inputs(cuda, w, h)
+    cot = cotangents(inst, kw["n_tiles"])
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"], n_channels=19)
+    for base in (0, kw["tiles_x"]):
+        args = (inst.data, inst.starts, inst.counts, base, cot)
+        got = pbb.blend_bwd_checkpoints_cuda(*args, **tiles)
+        want = pbb.blend_bwd_checkpoints_plain(*args, **tiles)
+        torch.cuda.synchronize()
+        e = pbb.checkpoint_errors(got, want, inst.counts)
+        assert e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0, e
+        assert max(e["t_rel"], e["t_final_rel"], e["sum_rel"]) <= CKPT_RTOL, e
+    assert int(want.n_chunks) > int((inst.counts > 0).sum())   # tiles of several chunks
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_blend_bwd_rows_kernel_matches_plain(cuda, w, h):
+    inst, kw = instance_inputs(cuda, w, h)
+    cot = cotangents(inst, kw["n_tiles"])
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"], n_channels=19)
+    args = (inst.data, inst.starts, inst.counts, 0, cot)
+    ckpt = pbb.blend_bwd_checkpoints_cuda(*args, **tiles)
+    got = pbb.blend_bwd_rows_cuda(*args, ckpt, **tiles)
+    want = pbb.blend_bwd_rows_plain(*args, ckpt, **tiles)
+    torch.cuda.synchronize()
+    tol = 1e-4 * want.abs().max(dim=0).values + 1e-6
+    assert bool(((got - want).abs().max(dim=0).values <= tol).all())
+    assert float(got[:, 8 + 19:].abs().max()) == 0.0 and float(got[:, 7].abs().max()) == 0.0
     assert float(want[:, :7].abs().max()) > 1e-3
 
 
