@@ -19,8 +19,8 @@ Phases, each of which must pass (any failure exits non-zero):
      through the deform branch, frames/s;
   5. branch-A training: kernel D against its plain version on the inputs a
      training step's backward gives it (bench point and 208x144), as in
-     phase 2, and each of its two launches (D1 checkpoints, D2 rows) against
-     its own plain version; one step on the card against the same step on the
+     phase 2, and each of its three launches (D1 T checkpoints, D1s chunk
+     sums, D2 rows) against its own plain version; one step on the card against the same step on the
      CPU (128^2, capacity 1,024, LPIPS on); the same step twice at the bench
      point, bit-equal; ms/step over 100 steps at the bench point (capacity
      8,192, LPIPS on); a profile of 8 steps; a 60-iteration train_loop with
@@ -193,14 +193,20 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
     err = float(err_rows.max())
     require(bool(torch.isfinite(got).all()) and worst <= 1.0,
             f"blend_bwd {label}: component errors {err_rows.tolist()} over {tol.tolist()}")
-    # D1 against its plain version; D2 against its plain version on D1's checkpoints
+    # D1 + D1s against their plain version; D1s and D2 against theirs on
+    # the kernels' checkpoints
     ck = pbb.blend_bwd_checkpoints_cuda(*args, **kw)
     ck_want = pbb.blend_bwd_checkpoints_plain(*args, **kw)
+    sums_want = pbb.blend_bwd_sums_plain(*args, ck, **kw)
     torch.cuda.synchronize()
     e1 = pbb.checkpoint_errors(ck, ck_want, counts)
     require(e1["n_chunks_equal"] and e1["map_equal"] and e1["stop_mismatch"] == 0
             and max(e1["t_rel"], e1["t_final_rel"], e1["sum_rel"]) <= CKPT_RTOL,
             f"blend_bwd_ckpt {label}: {e1}")
+    n_chunks = int(ck.n_chunks)
+    sums_err = float((ck.chunk_sum[:n_chunks] - sums_want[:n_chunks]).abs().max())
+    sums_rel = sums_err / float(sums_want[:n_chunks].abs().max())
+    require(sums_rel <= CKPT_RTOL, f"blend_bwd_sums {label}: {sums_rel} of the largest sum")
     rows = pbb.blend_bwd_rows_cuda(*args, ck, **kw)
     rows_want = pbb.blend_bwd_rows_plain(*args, ck, **kw)
     torch.cuda.synchronize()
@@ -209,10 +215,13 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
             f"blend_bwd_rows {label}: component errors {err2_rows.tolist()} over "
             f"{tol2.tolist()}")
     ms = cuda_ms(lambda: pbb.blend_tiles_bwd_cuda(*args, **kw))
-    ms1 = cuda_ms(lambda: pbb.blend_bwd_checkpoints_cuda(*args, **kw))
+    ms1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, **kw))
+    ms1s = cuda_ms(lambda: pbb.blend_bwd_sums_cuda(*args, ck, **kw))
     ms2 = cuda_ms(lambda: pbb.blend_bwd_rows_cuda(*args, ck, **kw))
     plain_ms = cuda_ms(lambda: pbb.blend_tiles_bwd_plain(*args, **kw), reps=2, warmup=1)
+    # D1's plain version computes the sums too (blend_bwd_checkpoints_plain)
     plain1 = cuda_ms(lambda: pbb.blend_bwd_checkpoints_plain(*args, **kw), reps=2, warmup=1)
+    plain1s = cuda_ms(lambda: pbb.blend_bwd_sums_plain(*args, ck, **kw), reps=2, warmup=1)
     plain2 = cuda_ms(lambda: pbb.blend_bwd_rows_plain(*args, ck, **kw), reps=2, warmup=1)
     cf = data.shape[0] - pb.HDR
     require(cf == -(-C // 8) * 8, f"blend_bwd {label}: {cf} feature rows for C={C}")
@@ -228,17 +237,21 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
         data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=kw["tiles_x"],
         n_channels=cf, tile_w=kw["tile_w"], tile_h=kw["tile_h"])
     n_busy = int((counts > 0).sum())
-    n_chunks = int(ck.n_chunks)
     ops = 40.0 * n_eval + (3.0 * C + 30.0) * n_incl
     nbytes = 2 * (7 + C) * 4 * n_read + n_busy * P * (C + 3) * 4 + 8 * n_tiles
     b_ms, b_by = bound(ops, nbytes)
-    # D1: one pass over the pairs (~20 ops), w q of the included pairs
-    # (2 C + 6); reads the rows and C + 2 cotangent columns, writes two
-    # floats per (chunk, pixel) and stop, T_final per pixel of busy tiles
+    # D1: one pass over the pairs (~20 ops) and the T step of the included
+    # ones; reads 6 rows of the instances, writes T per (chunk, pixel) and
+    # stop, T_final per pixel of the busy tiles
     ckpt_bytes = 4 * (2 * n_chunks * P + 2 * n_busy * P)
-    ops1 = 20.0 * n_eval + (2.0 * C + 6.0) * n_incl
-    b1 = bound(ops1, (7 + C) * 4 * n_read + n_busy * P * (C + 2) * 4 + 8 * n_tiles
-               + ckpt_bytes)
+    b1 = bound(20.0 * n_eval + 2.0 * n_incl,
+               6 * 4 * n_read + 8 * n_tiles + 4 * (n_chunks + 2 * n_busy) * P)
+    # D1s: the pairs before each stop again and w q of the included ones
+    # (2 C + 6); reads the 7 + C rows, C + 2 cotangent columns, T and stop,
+    # writes the sums
+    b1s = bound(20.0 * n_eval + (2.0 * C + 6.0) * n_incl,
+                (7 + C) * 4 * n_read + n_busy * P * (C + 2) * 4 + 8 * n_tiles
+                + 4 * (2 * n_chunks + n_busy) * P)
     # D2: the same pairs again with the gradient arithmetic of the included
     # ones; reads the rows, C + 3 cotangent columns and the checkpoints,
     # writes the 7 + C gradient rows
@@ -251,13 +264,15 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; work: {n_eval} pairs evaluated, "
           f"{n_incl} included, {n_read} instances read, {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    print(f"[kernel D blend_bwd] {label}: D1 checkpoints {ms1:.4f} ms (plain {plain1:.4f} ms, "
-          f"bound {b1[0]:.5f} ms, {b1[1]}; {n_busy} blocks), D2 rows {ms2:.4f} ms (plain "
+    print(f"[kernel D blend_bwd] {label}: D1 T checkpoints {ms1:.4f} ms (plain, with the "
+          f"sums, {plain1:.4f} ms; bound {b1[0]:.5f} ms, {b1[1]}; {n_busy} blocks), D1s chunk "
+          f"sums {ms1s:.4f} ms (plain {plain1s:.4f} ms, bound {b1s[0]:.5f} ms, {b1s[1]}; "
+          f"{n_chunks} working blocks), D2 rows {ms2:.4f} ms (plain "
           f"{plain2:.4f} ms, bound {b2[0]:.5f} ms, {b2[1]}; {n_chunks} working blocks of "
           f"{ck.t_start.shape[0]} launched); D1 vs plain: stop mismatches off near-ties "
           f"{e1['stop_mismatch']}, near-ties {e1['near_ties']}, T rel {e1['t_rel']:.3e}, "
           f"T_final rel {e1['t_final_rel']:.3e}, chunk sums {e1['sum_rel']:.3e} of the "
-          f"largest; D2 vs plain: max abs err {float(err2_rows.max()):.3e} (worst component "
+          f"largest; D1s vs plain: {sums_rel:.3e} of the largest sum; D2 vs plain: max abs err {float(err2_rows.max()):.3e} (worst component "
           f"at {worst2:.3f} of its tolerance)", flush=True)
     if main:
         src = "mygauhuman_torch/csrc/blend_bwd.cu"
@@ -265,10 +280,15 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
         report["blend_bwd"] = dict(
             name="blend_bwd", route="cuda", source=src, replaces=tpu, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        # D1's error: the largest relative error of T against the plain T
         report["blend_bwd_ckpt"] = dict(
             name="blend_bwd_ckpt", route="cuda", source=src, replaces=tpu,
-            max_abs_err=max(e1["t_rel"], e1["sum_rel"]), ms=ms1, plain_ms=plain1,
+            max_abs_err=max(e1["t_rel"], e1["t_final_rel"]), ms=ms1, plain_ms=plain1,
             bound_ms=b1[0], bound_by=b1[1], library_ms=None)
+        report["blend_bwd_sums"] = dict(
+            name="blend_bwd_sums", route="cuda", source=src, replaces=tpu,
+            max_abs_err=sums_err, ms=ms1s, plain_ms=plain1s, bound_ms=b1s[0],
+            bound_by=b1s[1], library_ms=None)
         report["blend_bwd_rows"] = dict(
             name="blend_bwd_rows", route="cuda", source=src, replaces=tpu,
             max_abs_err=float(err2_rows.max()), ms=ms2, plain_ms=plain2, bound_ms=b2[0],
@@ -426,9 +446,10 @@ def train_bench(scene, cfg, train, dev, report):
               for a, b in windows), flush=True)
     print(f"[train] loss per iteration {np.round(loss, 4).tolist()}")
     print(f"[train] PSNR per iteration {np.round(psnr, 3).tolist()}")
-    for name in ("knn", "deform", "blend_fwd", "blend_bwd", "blend_bwd_ckpt", "blend_bwd_rows"):
+    kernel_d = ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")
+    for name in ("knn", "deform", "blend_fwd") + kernel_d:
         require(launches[name] > 0, f"kernel {name} was not launched in the train loop")
-    for name in ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_rows"):
+    for name in kernel_d:
         report[name]["launches"] = launches[name]
     require(np.isfinite(loss[-1]), "the train loop ended with a non-finite loss")
     # learning is read on the last 10 iterations before the first event: each
@@ -790,7 +811,7 @@ def main() -> None:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: report[n][k] for k in keys}
                for n in ("knn", "deform", "blend_fwd", "blend_bwd", "blend_bwd_ckpt",
-                         "blend_bwd_rows")]
+                         "blend_bwd_sums", "blend_bwd_rows")]
     print(json.dumps({"kernels": kernels}))
     print(card_line())   # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

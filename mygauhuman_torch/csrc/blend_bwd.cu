@@ -1,5 +1,6 @@
 // Kernel D: backward of the forward alpha blend (kernel C), per-instance
-// gradient rows, in two launches: D1 (checkpoints) and D2 (rows).
+// gradient rows, in three launches: D1 (T checkpoints), D1s (chunk sums)
+// and D2 (rows).
 //
 // Replaces the blend backward kernel of the TPU package:
 //   mygauhuman_tpu/ops/pallas_blend_bwd.py:51 _blend_bwd_kernel, reached
@@ -37,14 +38,18 @@
 // instances (the last one ragged), and the serial chain is carried across
 // chunks by per-pixel checkpoints, so that chunks replay in parallel.
 //   D1 (blend_bwd_ckpt), one block per tile, one thread per pixel: kernel
-//     C's front-to-back loop, the same serial product for T in the same
-//     order (so its include decisions are kernel C's), writing for every
-//     chunk of its tile T before the chunk (T_final once the pixel has
-//     stopped) and the chunk's sum of w q over included instances, and per
-//     pixel `stop` and T_final. No reductions. Each block also finds its
-//     first chunk slot (the chunks of the tiles before it, summed over
-//     counts in the block) and writes the slot -> (tile, chunk) map, so the
-//     host never reads counts.
+//     C's front-to-back loop without the colours, the same serial product
+//     for T in the same order (so its include decisions are kernel C's),
+//     writing T before every chunk of its tile (T_final once the pixel has
+//     stopped) and per pixel `stop` and T_final. No reductions. Each block
+//     also finds its first chunk slot (the chunks of the tiles before it,
+//     summed over counts in the block) and writes the slot -> (tile, chunk)
+//     map, so the host never reads counts. One block still walks the
+//     longest tile, so D1 keeps only what the chain needs: the colour and
+//     w q arithmetic would lengthen every serial step.
+//   D1s (blend_bwd_sums), one block per chunk slot, one thread per pixel:
+//     from the chunk's T checkpoint forward over its instances before the
+//     pixel's stop, the chunk's sum of w q over the included ones.
 //   D2 (blend_bwd_rows), one block per chunk slot, one thread per pixel:
 //     T at the chunk's end is the next chunk's checkpoint (T_final for the
 //     tile's last chunk), S at its end the sum of the tile's later chunk
@@ -65,7 +70,8 @@
 // n_tiles chunk slots bound the chunks of disjoint slices, so two [G, P]
 // fp32 checkpoints, [T, P] stop and T_final and the [G] map: ~6 MB at the
 // 512^2 bench point (ns = 32,768, 1,024 tiles of 256 px).
-// The grid of D2 is G blocks; slots past the tiles' chunks return at once.
+// The grids of D1s and D2 are G blocks; slots past the tiles' chunks return
+// at once.
 //
 // Tensor cores are not used. The feature rows are a [CH x P] . [P x C]
 // product (sum_p w_{p,i} g_{p,k}), but the function is a few microseconds
@@ -95,12 +101,15 @@ __device__ __forceinline__ float halve(bool up, float lo, float hi, int off) {
   return keep + __shfl_xor_sync(FULL, send, off);
 }
 
-// ---- D1: checkpoints -------------------------------------------------------
+// ---- D1: checkpoints of T ------------------------------------------------
+// The alpha of UNROLL instances is computed before their serial T steps,
+// so that the independent math of the next instances overlaps the chain.
+constexpr int UNROLL = 4;   // divides CH and the batch (P, whole warps)
+
 __global__ void blend_bwd_ckpt_kernel(
     const float* __restrict__ data, int ns, const int* __restrict__ starts,
     const int* __restrict__ counts, int n_tiles, int tile_base, int tiles_x,
-    int C, int Cf, int tile_w, int tile_h, const float* __restrict__ cot,
-    int max_chunks, float* __restrict__ ck_t, float* __restrict__ ck_s,
+    int tile_w, int tile_h, int max_chunks, float* __restrict__ ck_t,
     int* __restrict__ stop_out, float* __restrict__ t_final,
     int2* __restrict__ chunk_map, int* __restrict__ n_chunks) {
   extern __shared__ float sm[];
@@ -112,8 +121,6 @@ __global__ void blend_bwd_ckpt_kernel(
   float* s_cxy = sm + 3 * P;
   float* s_cyy = sm + 4 * P;
   float* s_op = sm + 5 * P;
-  float* s_dep = sm + 6 * P;
-  float* s_feat = sm + 7 * P;  // [C][P]
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -146,19 +153,12 @@ __global__ void blend_bwd_ckpt_kernel(
   const int tg = tile_base + t;
   const float px = static_cast<float>((tg % tiles_x) * tile_w + tid % tile_w);
   const float py = static_cast<float>((tg / tiles_x) * tile_h + tid / tile_w);
-  const long long pix = static_cast<long long>(t) * P + tid;
-  const float* c = cot + pix * (Cf + 3);
-  float gc[MAX_C];
-#pragma unroll
-  for (int k = 0; k < MAX_C; ++k) gc[k] = k < C ? c[k] : 0.f;
-  const float g_alpha = c[Cf];
-  const float g_depth = c[Cf + 1];
   float* ckt = ck_t + static_cast<long long>(off) * P + tid;   // chunk k at [k * P]
-  float* cks = ck_s + static_cast<long long>(off) * P + tid;
 
-  // kernel C's loop (csrc/blend_fwd.cu), with a checkpoint at each chunk start
-  float T = 1.f, csum = 0.f;
-  int stop = count, ck = -1;
+  // kernel C's loop (csrc/blend_fwd.cu) without the colours: the same
+  // serial product for T, with a checkpoint at each chunk start
+  float T = 1.f;
+  int stop = count, ck = 0;   // ck: checkpoints written
   bool done = false;
   for (int b0 = 0; b0 < count; b0 += P) {
     // also the barrier that keeps the previous batch alive until read
@@ -172,53 +172,113 @@ __global__ void blend_bwd_ckpt_kernel(
       s_cxy[tid] = data[3LL * ns + col];
       s_cyy[tid] = data[4LL * ns + col];
       s_op[tid] = data[5LL * ns + col];
-      s_dep[tid] = data[6LL * ns + col];
-      for (int k = 0; k < C; ++k) {
-        s_feat[k * P + tid] = data[static_cast<long long>(HDR + k) * ns + col];
-      }
     }
     __syncthreads();
     const int n = min(P, count - b0);
-    for (int i = 0; i < n && !done; ++i) {
-      const int k = b0 + i;
-      if (k % CH == 0) {   // a chunk starts: close the last one, checkpoint T
-        if (ck >= 0) cks[static_cast<long long>(ck) * P] = csum;
-        ck = k / CH;
-        ckt[static_cast<long long>(ck) * P] = T;
-        csum = 0.f;
-      }
-      const float dx = s_x[i] - px;
-      const float dy = s_y[i] - py;
-      const float power =
-          -0.5f * (s_cxx[i] * dx * dx + s_cyy[i] * dy * dy) - s_cxy[i] * dx * dy;
-      if (power > 0.f) continue;
-      const float alpha = fminf(0.99f, s_op[i] * expf(power));
-      if (alpha < 1.f / 255.f) continue;
-      const float test_t = T * (1.f - alpha);
-      if (test_t < 1e-4f) {
-        done = true;
-        stop = k;
-        break;
-      }
-      const float w = alpha * T;
-      float q = g_alpha + s_dep[i] * g_depth;
+    for (int i = 0; i < n && !done; i += UNROLL) {
+      float al[UNROLL];   // alpha of a valid instance, else 0
 #pragma unroll
-      for (int f = 0; f < MAX_C; ++f) {
-        if (f < C) q += s_feat[f * P + i] * gc[f];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int iu = i + u;
+        al[u] = 0.f;
+        if (iu < n) {
+          const float dx = s_x[iu] - px;
+          const float dy = s_y[iu] - py;
+          const float power = -0.5f * (s_cxx[iu] * dx * dx + s_cyy[iu] * dy * dy) -
+                              s_cxy[iu] * dx * dy;
+          if (power <= 0.f) {
+            const float alpha = fminf(0.99f, s_op[iu] * expf(power));
+            if (alpha >= 1.f / 255.f) al[u] = alpha;
+          }
+        }
       }
-      csum += w * q;
-      T = test_t;
+      if ((b0 + i) % CH == 0) ckt[static_cast<long long>(ck++) * P] = T;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (al[u] > 0.f) {
+          const float test_t = T * (1.f - al[u]);
+          if (test_t < 1e-4f) {
+            done = true;
+            stop = b0 + i + u;
+            break;
+          }
+          T = test_t;
+        }
+      }
     }
   }
-  // the chunk the pixel ended in; the chunks after its stop hold T_final
-  // and no sum
-  if (ck >= 0) cks[static_cast<long long>(ck) * P] = csum;
-  for (int k = ck + 1; k < nch; ++k) {
-    ckt[static_cast<long long>(k) * P] = T;
-    cks[static_cast<long long>(k) * P] = 0.f;
+  // the chunks after the pixel's stop hold T_final
+  for (int k = ck; k < nch; ++k) ckt[static_cast<long long>(k) * P] = T;
+  stop_out[static_cast<long long>(t) * P + tid] = stop;
+  t_final[static_cast<long long>(t) * P + tid] = T;
+}
+
+// ---- D1s: chunk sums ---------------------------------------------------------
+// One block per chunk slot, one thread per pixel: from the chunk's T
+// checkpoint forward over its instances before the pixel's stop, the sum of
+// w q over the included ones.
+__global__ void __launch_bounds__(256) blend_bwd_sums_kernel(
+    const float* __restrict__ data, int ns, const int* __restrict__ starts,
+    const int* __restrict__ counts, int tile_base, int tiles_x, int C, int Cf,
+    int tile_w, int tile_h, const float* __restrict__ cot, int max_chunks,
+    const float* __restrict__ ck_t, const int* __restrict__ stop_in,
+    const int2* __restrict__ chunk_map, const int* __restrict__ n_chunks,
+    float* __restrict__ ck_s) {
+  extern __shared__ float sm[];   // [7 + C][CH]: x y cxx cxy cyy op depth feat..
+  const int P = tile_w * tile_h;
+  const int K = 7 + C;
+  const int g = blockIdx.x;
+  if (g >= min(*n_chunks, max_chunks)) return;
+  const int2 tc = chunk_map[g];
+  if (tc.x < 0) return;
+  const int t = tc.x;
+  const int cs = tc.y * CH;
+  const int tid = threadIdx.x;
+  const int n = min(CH, counts[t] - cs);
+  const long long pix = static_cast<long long>(t) * P + tid;
+  const int hi = max(0, min(n, stop_in[pix] - cs));   // this pixel's instances
+  float* out = ck_s + static_cast<long long>(g) * P + tid;
+  if (!__syncthreads_or(hi > 0)) {   // no pixel reaches the chunk
+    *out = 0.f;
+    return;
   }
-  stop_out[pix] = stop;
-  t_final[pix] = T;
+  const long long col0 = static_cast<long long>(starts[t]) + cs;
+  for (int j = tid; j < K * CH; j += P) {
+    const int r = j / CH, i = j % CH;
+    if (i < n) {
+      const int row = r < 7 ? r : r + 1;   // skip the ones row
+      sm[j] = data[static_cast<long long>(row) * ns + col0 + i];
+    }
+  }
+  const int tg = tile_base + t;
+  const float px = static_cast<float>((tg % tiles_x) * tile_w + tid % tile_w);
+  const float py = static_cast<float>((tg / tiles_x) * tile_h + tid / tile_w);
+  const float* cp = cot + pix * (Cf + 3);
+  float gc[MAX_C];
+#pragma unroll
+  for (int k = 0; k < MAX_C; ++k) gc[k] = k < C ? cp[k] : 0.f;
+  const float g_alpha = cp[Cf];
+  const float g_depth = cp[Cf + 1];
+  float T = ck_t[static_cast<long long>(g) * P + tid];
+  float sum = 0.f;
+  __syncthreads();
+  for (int i = 0; i < hi; ++i) {
+    const float dx = sm[i] - px;
+    const float dy = sm[CH + i] - py;
+    const float power = -0.5f * (sm[2 * CH + i] * dx * dx + sm[4 * CH + i] * dy * dy) -
+                        sm[3 * CH + i] * dx * dy;
+    if (power > 0.f) continue;
+    const float alpha = fminf(0.99f, sm[5 * CH + i] * expf(power));
+    if (alpha < 1.f / 255.f) continue;
+    float q = g_alpha + sm[6 * CH + i] * g_depth;
+#pragma unroll
+    for (int k = 0; k < MAX_C; ++k) {
+      if (k < C) q += sm[(7 + k) * CH + i] * gc[k];
+    }
+    sum += alpha * T * q;
+    T *= 1.f - alpha;
+  }
+  *out = sum;
 }
 
 // ---- D2: rows --------------------------------------------------------------
@@ -387,25 +447,43 @@ bool bad_shape(int C, int Cf, int P, int max_p) {
 
 }  // namespace
 
-// D1. Scratch: ck_t, ck_s [max_chunks, P] f32, stop_out [n_tiles, P] i32,
+// D1. Scratch: ck_t [max_chunks, P] f32, stop_out [n_tiles, P] i32,
 // t_final [n_tiles, P] f32, chunk_map [max_chunks] int2, n_chunks [1] i32.
 extern "C" int blend_bwd_ckpt(const float* data, int ns, const int* starts,
                               const int* counts, int n_tiles, int tile_base,
-                              int tiles_x, int C, int Cf, int tile_w,
-                              int tile_h, const float* cot, int max_chunks,
-                              float* ck_t, float* ck_s, int* stop_out,
+                              int tiles_x, int tile_w, int tile_h,
+                              int max_chunks, float* ck_t, int* stop_out,
                               float* t_final, int* chunk_map, int* n_chunks,
                               cudaStream_t stream) {
   const int P = tile_w * tile_h;
-  const size_t smem = static_cast<size_t>(7 + C) * P * sizeof(float);
-  if (bad_shape(C, Cf, P, 1024) || smem > 48 * 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t smem = static_cast<size_t>(6) * P * sizeof(float);
+  if (P > 1024 || P % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles > 0) {
     blend_bwd_ckpt_kernel<<<n_tiles, P, smem, stream>>>(
-        data, ns, starts, counts, n_tiles, tile_base, tiles_x, C, Cf, tile_w,
-        tile_h, cot, max_chunks, ck_t, ck_s, stop_out, t_final,
-        reinterpret_cast<int2*>(chunk_map), n_chunks);
+        data, ns, starts, counts, n_tiles, tile_base, tiles_x, tile_w, tile_h,
+        max_chunks, ck_t, stop_out, t_final, reinterpret_cast<int2*>(chunk_map),
+        n_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D1s: one block per chunk slot of D1's scratch; writes ck_s [max_chunks, P]
+// for the slots in use.
+extern "C" int blend_bwd_sums(const float* data, int ns, const int* starts,
+                              const int* counts, int n_tiles, int tile_base,
+                              int tiles_x, int C, int Cf, int tile_w,
+                              int tile_h, const float* cot, int max_chunks,
+                              const float* ck_t, const int* stop_in,
+                              const int* chunk_map, const int* n_chunks,
+                              float* ck_s, cudaStream_t stream) {
+  const int P = tile_w * tile_h;
+  const size_t smem = static_cast<size_t>(7 + C) * CH * sizeof(float);
+  if (bad_shape(C, Cf, P, 256)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles > 0 && max_chunks > 0) {
+    blend_bwd_sums_kernel<<<max_chunks, P, smem, stream>>>(
+        data, ns, starts, counts, tile_base, tiles_x, C, Cf, tile_w, tile_h, cot,
+        max_chunks, ck_t, stop_in, reinterpret_cast<const int2*>(chunk_map),
+        n_chunks, ck_s);
   }
   return static_cast<int>(cudaGetLastError());
 }

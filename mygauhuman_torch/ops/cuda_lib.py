@@ -13,8 +13,9 @@ wrappers pass it to `check()`, which raises on anything but 0.
 `LAUNCHES` counts kernel launches per kernel name. A wrapper adds one right
 after it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
-Kernel D is two launches, each with its own count (`blend_bwd_ckpt`,
-`blend_bwd_rows`); `blend_bwd` counts whole backward passes (both launched).
+Kernel D is three launches, each with its own count (`blend_bwd_ckpt`,
+`blend_bwd_sums`, `blend_bwd_rows`); `blend_bwd` counts whole backward
+passes (all three launched).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ SOURCES = {
     "blend_bwd": ("blend_bwd.cu", []),
 }
 
-LAUNCHES = {name: 0 for name in (*SOURCES, "blend_bwd_ckpt", "blend_bwd_rows")}
+LAUNCHES = {name: 0 for name in (*SOURCES, "blend_bwd_ckpt", "blend_bwd_sums",
+                                  "blend_bwd_rows")}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -56,8 +58,10 @@ _SIGNATURES = {
                                 _PTR]},
     "blend_bwd": {
         "blend_bwd_ckpt": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],
+        "blend_bwd_sums": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                            _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                           _PTR, _PTR],
+                           _PTR],
         "blend_bwd_rows": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                            _INT, _INT, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
                            _PTR, _PTR, _PTR],
@@ -96,7 +100,9 @@ def _target(name: str) -> tuple[Path, list[str]]:
 
 def build(names=None) -> dict[str, float]:
     """Compile the named kernels (all by default) in parallel; returns the
-    seconds each took (0.0 when already built). Raises if one fails."""
+    seconds each took (0.0 when already built). Raises if one fails.
+    BUILD_LOGS holds each one's nvcc output (ptxas registers and spills),
+    kept beside the library so that a build done earlier still shows it."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -110,6 +116,10 @@ def build(names=None) -> dict[str, float]:
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
     seconds = {name: 0.0 for name in names}
+    for name in names:
+        log = _target(name)[0].with_suffix(".log")
+        if name not in procs and log.exists():
+            BUILD_LOGS[name] = log.read_text()
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
@@ -118,6 +128,7 @@ def build(names=None) -> dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

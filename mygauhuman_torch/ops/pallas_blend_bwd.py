@@ -10,11 +10,12 @@ instance, [NS, D]:
   | 8.. d_feat
 
 With `n_channels` = C < Cf the pad rows 8 + C.. are 0 (their cotangent is
-taken as 0). CUDA tensors go through kernel D (`csrc/blend_bwd.cu`), two
-launches: D1 cuts each tile's serial chain at chunks of CHUNK instances
-(`Checkpoints`), D2 replays the chunks in parallel into the rows. Each has
-its plain version here (`blend_bwd_checkpoints_plain`,
-`blend_bwd_rows_plain`); the yardstick of the whole, and the CPU path, is
+taken as 0). CUDA tensors go through kernel D (`csrc/blend_bwd.cu`), three
+launches: D1 cuts each tile's serial chain in T at chunks of CHUNK
+instances, D1s sums w q per chunk (together the `Checkpoints`), D2 replays
+the chunks in parallel into the rows. Each has its plain version here
+(`blend_bwd_checkpoints_plain` for D1 and D1s together,
+`blend_bwd_sums_plain`, `blend_bwd_rows_plain`); the yardstick of the whole, and the CPU path, is
 `blend_tiles_bwd_plain`, autograd of kernel C's plain version with respect
 to the instance matrix. The TPU kernel's 128-lane pad of the rows is
 dropped. The per-Gaussian reduction of these rows lives with the autograd
@@ -40,7 +41,7 @@ ROWS_MAX_PIXELS = 256  # D2's block is one tile (launch bounds)
 
 
 class Checkpoints(NamedTuple):
-    """D1's output. Tile t's chunks c < ceil(count_t / chunk) take slots
+    """D1's and D1s' output. Tile t's chunks c < ceil(count_t / chunk) take slots
     off_t + c, off_t the chunks of the tiles before it, out of G =
     ceil(NS / chunk) + T slots (enough for disjoint slices)."""
     t_start: torch.Tensor    # [G, P] T before the chunk (T_final once stopped)
@@ -152,79 +153,112 @@ def blend_bwd_checkpoints_plain(data, starts, counts, tile_base, cotangents, *, 
     return Checkpoints(t_start, chunk_sum, stop, t_final, chunk_map, n_chunks)
 
 
+def _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
+                  t0, t1, C, *, tiles_x, tile_w, tile_h, chunk):
+    """Tiles [t0, t1) replayed from the checkpoints, chunk by chunk: T
+    before each instance is its chunk's checkpoint times the chunk's
+    earlier (1 - alpha) of included instances. [B, K, P] terms."""
+    P = tile_w * tile_h
+    cf = data.shape[0] - HDR
+    dev = data.device
+    B = t1 - t0
+    cols, valid, pos, k, nchk, px, py = _tile_group(
+        data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
+    x, y, cxx, cxy, cyy, op, dep = (r[..., None] for r in cols[:7])   # [B, K, 1]
+    dx = x - px[:, None, :]
+    dy = y - py[:, None, :]
+    power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
+    e_p = torch.exp(power)
+    raw = op * e_p
+    alpha = torch.clamp(raw, max=0.99)
+    incl = (valid[..., None] & (power <= 0.0) & (alpha >= 1.0 / 255.0)
+            & (k[None, :, None] < ckpt.stop[t0:t1].long()[:, None, :]))
+    a = torch.where(incl, alpha, torch.zeros_like(alpha))
+    c_ar = torch.arange(nchk, device=dev)
+    in_tile = (c_ar[None, :] < nch_all[t0:t1, None])[..., None]         # [B, nchk, 1]
+    slot = torch.clamp(off_all[t0:t1, None] + c_ar[None, :], max=ckpt.t_start.shape[0] - 1)
+    ts = torch.where(in_tile, ckpt.t_start[slot], torch.ones_like(ckpt.t_start[slot]))
+    one_m = (1.0 - a).reshape(B, nchk, chunk, P)
+    before = torch.cat([torch.ones_like(one_m[:, :, :1]),
+                        torch.cumprod(one_m, dim=2)[:, :, :-1]], dim=2)
+    t_b = (ts[:, :, None, :] * before).reshape(B, -1, P)
+    cot = cotangents[t0:t1]
+    q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), cot[..., :C])
+         + cot[:, None, :, cf] + dep * cot[:, None, :, cf + 1])
+    return dict(B=B, nchk=nchk, pos=pos, valid=valid, in_tile=in_tile, slot=slot,
+                dx=dx, dy=dy, cxx=cxx, cxy=cxy, cyy=cyy, op=op, e_p=e_p, raw=raw,
+                alpha=alpha, incl=incl, t_b=t_b, w=a * t_b, q=q, cot=cot)
+
+
+def blend_bwd_sums_plain(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints,
+                         *, n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None,
+                         chunk=CHUNK, chunk_tiles=64):
+    """Plain PyTorch version of D1s: each chunk's sum of w q [G, P] from the
+    T checkpoints and stops (slots past n_chunks 0)."""
+    P = tile_w * tile_h
+    cotangents, C = _cot(cotangents.float(), data.shape[0] - HDR, n_channels)
+    nch_all, off_all, _ = _chunk_layout(counts, n_tiles, chunk)
+    sums = torch.zeros_like(ckpt.t_start)
+    for t0 in range(0, n_tiles, chunk_tiles):
+        t1 = min(t0 + chunk_tiles, n_tiles)
+        r = _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
+                          t0, t1, C, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+                          chunk=chunk)
+        per = (r["w"] * r["q"]).reshape(r["B"], r["nchk"], chunk, P).sum(dim=2)
+        inside = r["in_tile"][..., 0]
+        sums[r["slot"][inside]] = per[inside]
+    return sums
+
+
 def blend_bwd_rows_plain(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints,
                          *, n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None,
                          chunk=CHUNK, chunk_tiles=64):
     """Plain PyTorch version of D2: the rows [NS, D] from the checkpoints.
-    T inside a chunk is the chunk's checkpoint times the chunk's earlier
-    (1 - alpha); S after an instance is the chunk's later w q, then the
-    tile's later chunk sums."""
+    S after an instance is the chunk's later w q, then the tile's later
+    chunk sums."""
     P = tile_w * tile_h
     D, ns = data.shape
     cf = D - HDR
     cotangents, C = _cot(cotangents.float(), cf, n_channels)
-    dev = data.device
-    G = ckpt.t_start.shape[0]
     nch_all, off_all, _ = _chunk_layout(counts, n_tiles, chunk)
-    grads = torch.zeros((ns, D), dtype=torch.float32, device=dev)
+    grads = torch.zeros((ns, D), dtype=torch.float32, device=data.device)
     for t0 in range(0, n_tiles, chunk_tiles):
         t1 = min(t0 + chunk_tiles, n_tiles)
-        B = t1 - t0
-        cols, valid, pos, k, nchk, px, py = _tile_group(
-            data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
-        x, y, cxx, cxy, cyy, op, dep = (r[..., None] for r in cols[:7])   # [B, Kp, 1]
-        dx = x - px[:, None, :]
-        dy = y - py[:, None, :]
-        power = -0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy
-        e_p = torch.exp(power)
-        raw = op * e_p
-        alpha = torch.clamp(raw, max=0.99)
-        stp = ckpt.stop[t0:t1].long()
-        incl = (valid[..., None] & (power <= 0.0) & (alpha >= 1.0 / 255.0)
-                & (k[None, :, None] < stp[:, None, :]))
-        a = torch.where(incl, alpha, torch.zeros_like(alpha))
-
-        c_ar = torch.arange(nchk, device=dev)
-        in_tile = (c_ar[None, :] < nch_all[t0:t1, None])[..., None]        # [B, nchk, 1]
-        slot = torch.clamp(off_all[t0:t1, None] + c_ar[None, :], max=G - 1)
-        ts = torch.where(in_tile, ckpt.t_start[slot], torch.ones_like(ckpt.t_start[slot]))
-        cs = torch.where(in_tile, ckpt.chunk_sum[slot], torch.zeros_like(ckpt.chunk_sum[slot]))
+        r = _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
+                          t0, t1, C, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+                          chunk=chunk)
+        B, nchk, cot, w, q = r["B"], r["nchk"], r["cot"], r["w"], r["q"]
+        cs = torch.where(r["in_tile"], ckpt.chunk_sum[r["slot"]],
+                         torch.zeros_like(ckpt.chunk_sum[r["slot"]]))
         # S after each chunk: the later chunk sums (suffix, no subtraction)
         s_end = torch.cat([cs.flip(1).cumsum(1).flip(1)[:, 1:],
                            torch.zeros_like(cs[:, :1])], dim=1)
-
-        cot = cotangents[t0:t1]
-        q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), cot[..., :C])
-             + cot[:, None, :, cf] + dep * cot[:, None, :, cf + 1])
-        shape4 = (B, nchk, chunk, P)
-        one_m = (1.0 - a).reshape(shape4)
-        before = torch.cat([torch.ones_like(one_m[:, :, :1]),
-                            torch.cumprod(one_m, dim=2)[:, :, :-1]], dim=2)
-        t_b = (ts[:, :, None, :] * before).reshape(B, -1, P)
-        w = a * t_b
-        wq = (w * q).reshape(shape4)
+        wq = (w * q).reshape(B, nchk, chunk, P)
         s_in = torch.cat([wq.flip(2).cumsum(2).flip(2)[:, :, 1:],
                           torch.zeros_like(wq[:, :, :1])], dim=2)
         S = (s_end[:, :, None, :] + s_in).reshape(B, -1, P)
         tail = (ckpt.t_final[t0:t1] * cot[..., cf + 2])[:, None, :]
-        d_a = t_b * q - (S + tail) / torch.clamp(1.0 - alpha, min=1e-6)
-        chain = incl & (raw < 0.99)
-        d_pow = torch.where(chain, d_a * op * e_p, torch.zeros_like(d_a))
-        rows = torch.zeros((B, k.shape[0], D), dtype=torch.float32, device=dev)
+        d_a = r["t_b"] * q - (S + tail) / torch.clamp(1.0 - r["alpha"], min=1e-6)
+        chain = r["incl"] & (r["raw"] < 0.99)
+        d_pow = torch.where(chain, d_a * r["op"] * r["e_p"], torch.zeros_like(d_a))
+        dx, dy, cxx, cxy, cyy = (r[n] for n in ("dx", "dy", "cxx", "cxy", "cyy"))
+        rows = torch.zeros((B, q.shape[1], D), dtype=torch.float32, device=data.device)
         rows[..., 0] = (d_pow * -(cxx * dx + cxy * dy)).sum(-1)
         rows[..., 1] = (d_pow * -(cyy * dy + cxy * dx)).sum(-1)
         rows[..., 2] = (d_pow * (-0.5 * dx * dx)).sum(-1)
         rows[..., 3] = (d_pow * (-dx * dy)).sum(-1)
         rows[..., 4] = (d_pow * (-0.5 * dy * dy)).sum(-1)
-        rows[..., 5] = torch.where(chain, d_a * e_p, torch.zeros_like(d_a)).sum(-1)
+        rows[..., 5] = torch.where(chain, d_a * r["e_p"], torch.zeros_like(d_a)).sum(-1)
         rows[..., 6] = torch.einsum("bkp,bp->bk", w, cot[..., cf + 1])
         rows[..., HDR:HDR + C] = torch.einsum("bkp,bpc->bkc", w, cot[..., :C])
-        grads[pos[valid]] = rows[valid]
+        valid = r["valid"]
+        grads[r["pos"][valid]] = rows[valid]
     return grads
 
 
 def checkpoint_errors(got: Checkpoints, want: Checkpoints, counts) -> dict:
-    """D1's checkpoints against the plain ones where both are defined.
+    """The checkpoints of D1 and D1s against the plain ones where both are
+    defined.
 
     The kernel's T is kernel C's serial fp32 product; the plain T is the
     exp of a fp32 log-space cumsum. A pixel whose T lands within rounding of
@@ -257,7 +291,7 @@ def checkpoint_errors(got: Checkpoints, want: Checkpoints, counts) -> dict:
 
 
 def _kernel_inputs(name, data, starts, counts, cotangents, n_tiles, P, n_channels):
-    """Checked, contiguous inputs of D1 / D2, and (Cf, C)."""
+    """Checked, contiguous inputs of kernel D's launches, and (Cf, C)."""
     if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
         raise ValueError(f"{name} takes a float32 CUDA instance matrix [D, NS]")
     cf = data.shape[0] - HDR
@@ -279,18 +313,26 @@ def _kernel_inputs(name, data, starts, counts, cotangents, n_tiles, P, n_channel
             counts.to(torch.int32).contiguous(), cotangents.contiguous(), cf, C)
 
 
-def blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
-                               tiles_x, tile_w=16, tile_h=16,
-                               n_channels=None) -> Checkpoints:
-    """Launch D1; same output as blend_bwd_checkpoints_plain where that is
-    defined (slots < n_chunks; stop and t_final of tiles that hold
+def _check_checkpoints(ckpt, data, n_tiles, P):
+    G = max_chunks(data.shape[1], n_tiles)
+    want = ((G, P), (G, P), (n_tiles, P), (n_tiles, P), (G, 2), (1,))
+    for x, shape, dtype in zip(ckpt, want, (torch.float32, torch.float32, torch.int32,
+                                            torch.float32, torch.int32, torch.int32)):
+        if x.shape != shape or x.dtype != dtype or x.device != data.device or \
+                not x.is_contiguous():
+            raise ValueError(f"checkpoints must be D1's for these inputs: {shape} "
+                             f"{dtype}, got {tuple(x.shape)} {x.dtype}")
+
+
+def blend_bwd_ckpt_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles, tiles_x,
+                        tile_w=16, tile_h=16, n_channels=None) -> Checkpoints:
+    """Launch D1: the checkpoints but the chunk sums (allocated, left for
+    blend_bwd_sums_cuda); the rest as blend_bwd_checkpoints_plain where
+    that is defined (slots < n_chunks; stop and t_final of tiles that hold
     instances)."""
     P = tile_w * tile_h
-    data, starts, counts, cot, cf, C = _kernel_inputs(
+    data, starts, counts, _, _, _ = _kernel_inputs(
         "kernel D1", data, starts, counts, cotangents, n_tiles, P, n_channels)
-    if (7 + C) * P * 4 > SMEM_LIMIT:
-        raise ValueError(f"tile {tile_w}x{tile_h} with {C} channels exceeds "
-                         "kernel D1's shared memory")
     G = max_chunks(data.shape[1], n_tiles)
     dev = data.device
     ckpt = Checkpoints(
@@ -302,11 +344,42 @@ def blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, *, n
         n_chunks=torch.empty((1,), dtype=torch.int32, device=dev))   # D1's last block
     fn = cuda_lib.library("blend_bwd").blend_bwd_ckpt
     err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(), n_tiles,
-             int(tile_base), tiles_x, C, cf, tile_w, tile_h, cot.data_ptr(), G,
-             *(x.data_ptr() for x in ckpt), torch.cuda.current_stream(dev).cuda_stream)
+             int(tile_base), tiles_x, tile_w, tile_h, G, ckpt.t_start.data_ptr(),
+             ckpt.stop.data_ptr(), ckpt.t_final.data_ptr(), ckpt.chunk_map.data_ptr(),
+             ckpt.n_chunks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check("blend_bwd_ckpt", err)
     cuda_lib.LAUNCHES["blend_bwd_ckpt"] += 1
     return ckpt
+
+
+def blend_bwd_sums_cuda(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints, *,
+                        n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None):
+    """Launch D1s: fill ckpt.chunk_sum (slots < n_chunks) in place, as
+    blend_bwd_sums_plain; returns ckpt."""
+    P = tile_w * tile_h
+    data, starts, counts, cot, cf, C = _kernel_inputs(
+        "kernel D1s", data, starts, counts, cotangents, n_tiles, P, n_channels)
+    _check_checkpoints(ckpt, data, n_tiles, P)
+    fn = cuda_lib.library("blend_bwd").blend_bwd_sums
+    err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(), n_tiles,
+             int(tile_base), tiles_x, C, cf, tile_w, tile_h, cot.data_ptr(),
+             ckpt.t_start.shape[0], ckpt.t_start.data_ptr(), ckpt.stop.data_ptr(),
+             ckpt.chunk_map.data_ptr(), ckpt.n_chunks.data_ptr(), ckpt.chunk_sum.data_ptr(),
+             torch.cuda.current_stream(data.device).cuda_stream)
+    cuda_lib.check("blend_bwd_sums", err)
+    cuda_lib.LAUNCHES["blend_bwd_sums"] += 1
+    return ckpt
+
+
+def blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
+                               tiles_x, tile_w=16, tile_h=16,
+                               n_channels=None) -> Checkpoints:
+    """Launch D1 then D1s; same output as blend_bwd_checkpoints_plain where
+    that is defined."""
+    kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+              n_channels=n_channels)
+    ckpt = blend_bwd_ckpt_cuda(data, starts, counts, tile_base, cotangents, **kw)
+    return blend_bwd_sums_cuda(data, starts, counts, tile_base, cotangents, ckpt, **kw)
 
 
 def blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints, *,
@@ -318,14 +391,8 @@ def blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt: Check
     if (7 + C) * CHUNK * (1 + P // 32) * 4 > SMEM_LIMIT:
         raise ValueError(f"tile {tile_w}x{tile_h} with {C} channels exceeds "
                          "kernel D2's shared memory")
-    G = max_chunks(data.shape[1], n_tiles)
-    want = ((G, P), (G, P), (n_tiles, P), (n_tiles, P), (G, 2), (1,))
-    for x, shape, dtype in zip(ckpt, want, (torch.float32, torch.float32, torch.int32,
-                                            torch.float32, torch.int32, torch.int32)):
-        if x.shape != shape or x.dtype != dtype or x.device != data.device or \
-                not x.is_contiguous():
-            raise ValueError(f"checkpoints must be D1's for these inputs: {shape} "
-                             f"{dtype}, got {tuple(x.shape)} {x.dtype}")
+    _check_checkpoints(ckpt, data, n_tiles, P)
+    G = ckpt.t_start.shape[0]
     grads = torch.zeros((data.shape[1], data.shape[0]), dtype=torch.float32,
                         device=data.device)
     fn = cuda_lib.library("blend_bwd").blend_bwd_rows
@@ -340,7 +407,7 @@ def blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt: Check
 
 def blend_tiles_bwd_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
                          tiles_x, tile_w=16, tile_h=16, n_channels=None):
-    """Launch kernel D (D1 then D2); same output as blend_tiles_bwd_plain."""
+    """Launch kernel D (D1, D1s, D2); same output as blend_tiles_bwd_plain."""
     kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
               n_channels=n_channels)
     ckpt = blend_bwd_checkpoints_cuda(data, starts, counts, tile_base, cotangents, **kw)

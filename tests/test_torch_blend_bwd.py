@@ -30,6 +30,7 @@ from mygauhuman_torch.ops.blend import tile_pixels, transmittance
 from mygauhuman_torch.ops.pallas_blend_bwd import (
     blend_bwd_checkpoints_plain,
     blend_bwd_rows_plain,
+    blend_bwd_sums_plain,
     blend_tiles_bwd_plain,
     blend_tiles_bwd_raw,
     max_chunks,
@@ -282,6 +283,17 @@ def test_checkpoint_t_is_kernel_c_plain_t(chunked, chunk):
                                        rtol=1e-6, atol=1e-6)
             slot += 1
     assert checked > 0 and slot == int(ck.n_chunks)
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+def test_chunk_sums_from_t_checkpoints(chunked, chunk):
+    """D1s' plain version, replaying each chunk from its T checkpoint, gives
+    the chunk sums taken from kernel C's plain T over the whole list."""
+    args, kw, ck = _ckpt(chunked, chunk)
+    sums = blend_bwd_sums_plain(*args, ck, **kw)
+    n = int(ck.n_chunks)
+    close(sums[:n].numpy(), ck.chunk_sum[:n].numpy())
+    assert float(ck.chunk_sum[:n].abs().max()) > 0.1
 
 
 def test_plain_kernel_d_zeroes_the_feature_pad(chunked):

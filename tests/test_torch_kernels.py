@@ -14,11 +14,13 @@ back where its plain version (autograd of kernel C's) differentiates the
 log-space cumsum, so each gradient component is held to 1e-4 of its
 largest plain value + 1e-6; the CUDA gradients of `blend_pallas` to the
 CPU ones within 1e-4 of each leaf's largest value + 1e-6, and two CUDA
-runs to each other bit for bit. Kernel D's two launches on their own: D1's
-checkpoints against their plain version by `checkpoint_errors` (equal
-stops off near-ties; T and the chunk sums within CKPT_RTOL, since the plain
-T is the exp of a fp32 cumsum of up to 1,024 log terms), D2's rows against
-their plain version on D1's checkpoints, per component as kernel D.
+runs to each other bit for bit. Kernel D's three launches on their own:
+the checkpoints of D1 and D1s against their plain version by
+`checkpoint_errors` (equal stops off near-ties; T and the chunk sums within
+CKPT_RTOL, since the plain T is the exp of a fp32 cumsum of up to 1,024 log
+terms), D1s' chunk sums against their plain version on the same T
+checkpoints within CKPT_RTOL of the largest, D2's rows against their plain
+version on the same checkpoints, per component as kernel D.
 """
 import numpy as np
 import pytest
@@ -114,7 +116,9 @@ def test_kernel_d_launches_refuse_cpu_tensors():
     tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
     ckpt = pbb.blend_bwd_checkpoints_plain(*args, **tiles)
     with pytest.raises(ValueError, match="CUDA"):
-        pbb.blend_bwd_checkpoints_cuda(*args, **tiles)
+        pbb.blend_bwd_ckpt_cuda(*args, **tiles)
+    with pytest.raises(ValueError, match="CUDA"):
+        pbb.blend_bwd_sums_cuda(*args, ckpt, **tiles)
     with pytest.raises(ValueError, match="CUDA"):
         pbb.blend_bwd_rows_cuda(*args, ckpt, **tiles)
 
@@ -232,6 +236,20 @@ def test_blend_bwd_ckpt_kernel_matches_plain(cuda, w, h):
         assert e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0, e
         assert max(e["t_rel"], e["t_final_rel"], e["sum_rel"]) <= CKPT_RTOL, e
     assert int(want.n_chunks) > int((inst.counts > 0).sum())   # tiles of several chunks
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_blend_bwd_sums_kernel_matches_plain(cuda, w, h):
+    inst, kw = instance_inputs(cuda, w, h)
+    cot = cotangents(inst, kw["n_tiles"])
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"], n_channels=19)
+    args = (inst.data, inst.starts, inst.counts, 0, cot)
+    ckpt = pbb.blend_bwd_checkpoints_cuda(*args, **tiles)
+    want = pbb.blend_bwd_sums_plain(*args, ckpt, **tiles)
+    torch.cuda.synchronize()
+    n = int(ckpt.n_chunks)
+    err = float((ckpt.chunk_sum[:n] - want[:n]).abs().max())
+    assert err <= CKPT_RTOL * float(want[:n].abs().max())
 
 
 @pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
