@@ -406,10 +406,12 @@ def train_bench(scene, cfg, train, dev, report):
         launches_ = sum(e.count for e in kernels_) / PROFILE_FRAMES
         bwd_us = sum(device_us(e, total=True) for e in prof.events()
                      if e.name.startswith("autograd::engine::evaluate_function")) / PROFILE_FRAMES
+        d_us = sum(device_us(e) for e in kernels_ if "blend_bwd" in e.key) / PROFILE_FRAMES
         print(f"[profile] train step under the profiler: {wall_us:.0f} us/step wall, "
               f"{busy_us:.0f} us/step device busy ({100 * busy_us / wall_us:.1f}%), "
               f"{launches_:.0f} kernel launches/step; backward (autograd engine) "
-              f"{bwd_us:.0f} us/step of device time, the rest {busy_us - bwd_us:.0f} us")
+              f"{bwd_us:.0f} us/step of device time, the rest {busy_us - bwd_us:.0f} us; "
+              f"kernel D {d_us:.1f} us/step ({100 * d_us / busy_us:.2f}% of device time)")
         for e in sorted(kernels_, key=device_us, reverse=True)[:10]:
             print(f"[profile]   {device_us(e) / PROFILE_FRAMES:8.1f} us/step "
                   f"{e.count / PROFILE_FRAMES:5.1f}x  {e.key[:90]}")

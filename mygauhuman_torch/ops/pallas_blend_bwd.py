@@ -37,7 +37,8 @@ from mygauhuman_torch.ops.pallas_blend import (
 )
 
 CHUNK = 32            # instances per chunk (csrc/blend_bwd.cu CH)
-ROWS_MAX_PIXELS = 256  # D2's block is one tile (launch bounds)
+ROWS_MAX_PIXELS = 256  # D1s' and D2's block is one tile (launch bounds)
+PLAIN_TILES = 64       # tiles per step of the plain versions ([64, K, P] terms)
 
 
 class Checkpoints(NamedTuple):
@@ -105,7 +106,7 @@ def _tile_group(data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h
 
 def blend_bwd_checkpoints_plain(data, starts, counts, tile_base, cotangents, *, n_tiles,
                                 tiles_x, tile_w=16, tile_h=16, n_channels=None,
-                                chunk=CHUNK, chunk_tiles=64) -> Checkpoints:
+                                chunk=CHUNK) -> Checkpoints:
     """Plain PyTorch version of D1, from kernel C's plain per-pixel T (the
     log-space cumulative product of `ops/blend.py::transmittance`)."""
     P = tile_w * tile_h
@@ -124,8 +125,8 @@ def blend_bwd_checkpoints_plain(data, starts, counts, tile_base, cotangents, *, 
     tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), nch_all)
     chunk_map[:total, 0] = tiles.int()
     chunk_map[:total, 1] = (torch.arange(total, device=dev) - off_all[tiles]).int()
-    for t0 in range(0, n_tiles, chunk_tiles):
-        t1 = min(t0 + chunk_tiles, n_tiles)
+    for t0 in range(0, n_tiles, PLAIN_TILES):
+        t1 = min(t0 + PLAIN_TILES, n_tiles)
         cols, valid, _, k, nchk, px, py = _tile_group(
             data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
         tr = transmittance(cols[0], cols[1], cols[2], cols[3], cols[4], cols[5], valid,
@@ -192,15 +193,15 @@ def _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, of
 
 def blend_bwd_sums_plain(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints,
                          *, n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None,
-                         chunk=CHUNK, chunk_tiles=64):
+                         chunk=CHUNK):
     """Plain PyTorch version of D1s: each chunk's sum of w q [G, P] from the
     T checkpoints and stops (slots past n_chunks 0)."""
     P = tile_w * tile_h
     cotangents, C = _cot(cotangents.float(), data.shape[0] - HDR, n_channels)
     nch_all, off_all, _ = _chunk_layout(counts, n_tiles, chunk)
     sums = torch.zeros_like(ckpt.t_start)
-    for t0 in range(0, n_tiles, chunk_tiles):
-        t1 = min(t0 + chunk_tiles, n_tiles)
+    for t0 in range(0, n_tiles, PLAIN_TILES):
+        t1 = min(t0 + PLAIN_TILES, n_tiles)
         r = _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
                           t0, t1, C, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
                           chunk=chunk)
@@ -212,7 +213,7 @@ def blend_bwd_sums_plain(data, starts, counts, tile_base, cotangents, ckpt: Chec
 
 def blend_bwd_rows_plain(data, starts, counts, tile_base, cotangents, ckpt: Checkpoints,
                          *, n_tiles, tiles_x, tile_w=16, tile_h=16, n_channels=None,
-                         chunk=CHUNK, chunk_tiles=64):
+                         chunk=CHUNK):
     """Plain PyTorch version of D2: the rows [NS, D] from the checkpoints.
     S after an instance is the chunk's later w q, then the tile's later
     chunk sums."""
@@ -222,8 +223,8 @@ def blend_bwd_rows_plain(data, starts, counts, tile_base, cotangents, ckpt: Chec
     cotangents, C = _cot(cotangents.float(), cf, n_channels)
     nch_all, off_all, _ = _chunk_layout(counts, n_tiles, chunk)
     grads = torch.zeros((ns, D), dtype=torch.float32, device=data.device)
-    for t0 in range(0, n_tiles, chunk_tiles):
-        t1 = min(t0 + chunk_tiles, n_tiles)
+    for t0 in range(0, n_tiles, PLAIN_TILES):
+        t1 = min(t0 + PLAIN_TILES, n_tiles)
         r = _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
                           t0, t1, C, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
                           chunk=chunk)

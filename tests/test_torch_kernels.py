@@ -268,6 +268,23 @@ def test_blend_bwd_rows_kernel_matches_plain(cuda, w, h):
     assert float(want[:, :7].abs().max()) > 1e-3
 
 
+def test_blend_bwd_kernel_wide_channels(cuda):
+    """C = 29 (Cf = 32): the launches' 32-register feature paths and D2's
+    components past the 32-lane butterfly."""
+    inst, kw = instance_inputs(cuda, 208, 144, C=29)
+    cot = torch.as_tensor(np.random.RandomState(11).randn(kw["n_tiles"], 256, 35)
+                          .astype(np.float32), device=cuda)
+    cot[:, :, 29:32] = 0.0
+    args = (inst.data, inst.starts, inst.counts, 0, cot)
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"], n_channels=29)
+    got = pbb.blend_tiles_bwd_cuda(*args, **tiles)
+    want = pbb.blend_tiles_bwd_plain(*args, **tiles)
+    torch.cuda.synchronize()
+    tol = 1e-4 * want.abs().max(dim=0).values + 1e-6
+    assert bool(((got - want).abs().max(dim=0).values <= tol).all())
+    assert float(want[:, 8 + 28].abs().max()) > 1e-3
+
+
 def rasterize_grads(device, seed=10, w=96, h=80):
     """Gradients of a rasterized image's weighted sum w.r.t. the means,
     covariances, opacities, features and background."""
