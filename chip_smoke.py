@@ -8,7 +8,11 @@ Phases, each of which must pass (any failure exits non-zero):
      source, in parallel) and its time, TF32 off;
   2. kernels A, B, C against their plain PyTorch versions on the card, on
      the inputs the serving render gives them, captured from real calls, with
-     kernel, plain and library times and each kernel's bound;
+     kernel, plain and library times and each kernel's bound; kernel A also
+     at the 16,384 queries of the training loop after densify, with its warps
+     per SM; kernel C's busy tiles and longest tile, and its checkpoint mode
+     (a differentiated forward) against D1 bit for bit and against the plain
+     checkpoints;
   3. the serving render at the bench point (512^2, 6,890 SMPL vertices,
      capacity 8,192 -> PLY -> load -> compact 6,912, instance capacity
      32,768): 4 views through the deform branch, then through the replay
@@ -17,13 +21,16 @@ Phases, each of which must pass (any failure exits non-zero):
      GPU render against the CPU (plain) render of the same inputs;
   4. the served size: 45,000 Gaussians (compacted capacity 45,056), 4 views
      through the deform branch, frames/s;
-  5. branch-A training: kernel D against its plain version on the inputs a
-     training step's backward gives it (bench point and 208x144), as in
-     phase 2, and each of its three launches (D1 T checkpoints, D1s chunk
-     sums, D2 rows) against its own plain version; one step on the card against the same step on the
+  5. branch-A training: kernel C at the inputs a training step's forward
+     gives it (checkpoint mode, as in phase 2), and kernel D against its plain
+     version on the inputs its backward gives it (bench point and 208x144):
+     the step's D1s + D2 on kernel C's checkpoints, the standalone three
+     launches, and each launch (D1 T checkpoints, D1s chunk sums, D2 rows)
+     against its own plain version; one step on the card against the same step on the
      CPU (128^2, capacity 1,024, LPIPS on); the same step twice at the bench
      point, bit-equal; ms/step over 100 steps at the bench point (capacity
-     8,192, LPIPS on); a profile of 8 steps; a 60-iteration train_loop with
+     8,192, LPIPS on); a profile of 8 steps (launches per step, kernels C and
+     D's device time; no D1 launch); a 60-iteration train_loop with
      densify events at 20 and 40 and an opacity reset at 50; the trained
      views' PSNR / SSIM / LPIPS;
   6. a `kernels` JSON line, the card line, and as the last line
@@ -179,20 +186,99 @@ def row_errors(got, want):
     return err_rows, tol, float((err_rows / tol).max())
 
 
-def check_kernel_d(label, call, C, report, pb, pbb, main):
-    """Kernel D and its two launches against their plain versions on one
-    captured backward call of a blend with C feature channels."""
+def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=None):
+    """Kernel C against its plain version on one captured call, its time and
+    bound, and its checkpoint mode: the same output, the checkpoints equal
+    to D1's bit for bit and to the plain ones within CKPT_RTOL."""
     import torch
 
-    (data, starts, counts, tile_base, cot), kw = call
+    kw = {k: v for k, v in kw.items() if k != "checkpoints"}
+    planar = kw["planar"]
+    args = (data, starts, counts, tile_base)
+    got = pb.blend_instances_cuda(*args, **kw)
+    want = pb.blend_instances_plain(*args, **kw)
+    got_ck, ck = pb.blend_instances_cuda(*args, checkpoints=True, **kw)
+    torch.cuda.synchronize()
+    C = kw["n_channels"]
+    # [C+3, H, W] or [T, C+3, P]: move the row axis first
+    err_rows = (got - want).abs().movedim(0 if planar else 1, 0).reshape(C + 3, -1)
+    err_depth = float(err_rows[C + 1].max())
+    err = float(torch.cat([err_rows[:C + 1], err_rows[C + 2:]]).max())
+    require(torch.isfinite(got).all() and err <= 1e-4 and err_depth <= 1e-3,
+            f"blend {label}: max abs err {err} (depth row {err_depth})")
+    require(torch.equal(got, got_ck), f"blend {label}: checkpoint mode changes the output")
+    # the checkpoints: against D1 (the same serial product, bit for bit) and
+    # against the plain version (the plain T is exp of a fp32 cumsum)
+    n_tiles, tiles_x, tw_, th_ = kw["n_tiles"], kw["tiles_x"], kw["tile_w"], kw["tile_h"]
+    P = tw_ * th_
+    tiles = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tw_, tile_h=th_)
+    cot = torch.zeros((n_tiles, P, data.shape[0] - pb.HDR + 3), device=data.device)
+    ck_d1 = pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles)
+    ck_plain = pb.blend_fwd_checkpoints_plain(*args, **tiles)
+    torch.cuda.synchronize()
+    mism = pbb.checkpoint_mismatches(ck, ck_d1, counts)
+    require(not any(mism.values()), f"blend {label}: checkpoints differ from D1's: {mism}")
+    e = pbb.checkpoint_errors(ck._replace(chunk_sum=ck_plain.chunk_sum), ck_plain, counts)
+    require(e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0
+            and max(e["t_rel"], e["t_final_rel"]) <= CKPT_RTOL,
+            f"blend {label}: checkpoints vs plain {e}")
+    ms = cuda_ms(lambda: pb.blend_instances_cuda(*args, **kw))
+    ms_ck = cuda_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw))
+    ms_d1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles))
+    plain_ms = cuda_ms(lambda: pb.blend_instances_plain(*args, **kw), reps=3, warmup=1)
+    n_busy = int((counts > 0).sum())
+    n_chunks = int(ck.n_chunks)
+    print(f"[kernel C blend_fwd] {label}: tiles {n_tiles} ({n_busy} with instances, longest "
+          f"{int(counts.max())}), instances {int(counts.sum())}, C={C}, max abs err {err:.3e} "
+          f"(depth row {err_depth:.3e}), kernel {ms:.4f} ms, checkpoint mode {ms_ck:.4f} ms "
+          f"(D1 on the same inputs {ms_d1:.4f} ms), plain {plain_ms:.4f} ms", flush=True)
+    # the work these inputs need: pairs evaluated before each pixel stops,
+    # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
+    # rows the kernel loads (x .. depth, features) of the instances some
+    # pixel evaluates, starts and counts, and the output; checkpoint mode
+    # adds T per (chunk, pixel), stop and T_final per pixel of the busy tiles
+    # and the slot map
+    _, n_eval, n_incl, n_read = pb._blend_instances_plain(
+        *args, n_tiles=n_tiles, tiles_x=tiles_x, n_channels=C, tile_w=tw_, tile_h=th_)
+    ops = 20.0 * n_eval + (2.0 * (C + 2) + 4.0) * n_incl
+    nbytes = (7 + C) * 4 * n_read + 8 * n_tiles + got.numel() * 4
+    b_ms, b_by = bound(ops, nbytes)
+    b_ck = bound(ops, nbytes + 4 * (n_chunks + 2 * n_busy) * P + 8 * n_chunks)
+    print(f"[kernel C blend_fwd] {label} work: {n_eval} (pixel, instance) pairs "
+          f"evaluated, {n_incl} included, {n_read} instances read, "
+          f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by}); "
+          f"checkpoint mode {n_chunks} chunk slots, bound {b_ck[0]:.5f} ms ({b_ck[1]}); "
+          f"checkpoints vs D1: {sum(mism.values())} values differ; vs plain: stop "
+          f"mismatches off near-ties {e['stop_mismatch']}, near-ties {e['near_ties']}, "
+          f"T rel {e['t_rel']:.3e}, T_final rel {e['t_final_rel']:.3e}", flush=True)
+    if report is not None:
+        report["blend_fwd"] = dict(
+            name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
+            replaces="mygauhuman_tpu/ops/pallas_blend.py:362",
+            max_abs_err=max(err, err_depth), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+
+
+def check_kernel_d(label, call, C, report, pb, pbb, main):
+    """Kernel D and its launches against their plain versions on one
+    captured backward call of a blend with C feature channels: the step's
+    D1s + D2 on kernel C's checkpoints, and the standalone D1, D1s, D2."""
+    import torch
+
+    (data, starts, counts, tile_base, cot, ck_c), kw = call
     args = (data, starts, counts, tile_base, cot)
-    got = pbb.blend_tiles_bwd_cuda(*args, **kw)
     want = pbb.blend_tiles_bwd_plain(*args, **kw)
+    got = pbb.blend_tiles_bwd_from_ckpt_cuda(*args, ck_c, **kw)
+    got_d = pbb.blend_tiles_bwd_cuda(*args, **kw)
     torch.cuda.synchronize()
     err_rows, tol, worst = row_errors(got, want)
     err = float(err_rows.max())
     require(bool(torch.isfinite(got).all()) and worst <= 1.0,
             f"blend_bwd {label}: component errors {err_rows.tolist()} over {tol.tolist()}")
+    err_d_rows, tol_d, worst_d = row_errors(got_d, want)
+    require(bool(torch.isfinite(got_d).all()) and worst_d <= 1.0,
+            f"blend_bwd {label} (D1, D1s, D2): component errors {err_d_rows.tolist()} over "
+            f"{tol_d.tolist()}")
     # D1 + D1s against their plain version; D1s and D2 against theirs on
     # the kernels' checkpoints
     ck = pbb.blend_bwd_checkpoints_cuda(*args, **kw)
@@ -203,6 +289,9 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
     require(e1["n_chunks_equal"] and e1["map_equal"] and e1["stop_mismatch"] == 0
             and max(e1["t_rel"], e1["t_final_rel"], e1["sum_rel"]) <= CKPT_RTOL,
             f"blend_bwd_ckpt {label}: {e1}")
+    mism = pbb.checkpoint_mismatches(ck_c, ck, counts)
+    require(not any(mism.values()), f"blend_bwd {label}: kernel C's checkpoints differ "
+            f"from D1's: {mism}")
     n_chunks = int(ck.n_chunks)
     sums_err = float((ck.chunk_sum[:n_chunks] - sums_want[:n_chunks]).abs().max())
     sums_rel = sums_err / float(sums_want[:n_chunks].abs().max())
@@ -214,7 +303,8 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
     require(bool(torch.isfinite(rows).all()) and worst2 <= 1.0,
             f"blend_bwd_rows {label}: component errors {err2_rows.tolist()} over "
             f"{tol2.tolist()}")
-    ms = cuda_ms(lambda: pbb.blend_tiles_bwd_cuda(*args, **kw))
+    ms = cuda_ms(lambda: pbb.blend_tiles_bwd_from_ckpt_cuda(*args, ck_c, **kw))
+    ms_d = cuda_ms(lambda: pbb.blend_tiles_bwd_cuda(*args, **kw))
     ms1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, **kw))
     ms1s = cuda_ms(lambda: pbb.blend_bwd_sums_cuda(*args, ck, **kw))
     ms2 = cuda_ms(lambda: pbb.blend_bwd_rows_cuda(*args, ck, **kw))
@@ -260,8 +350,10 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
                + ckpt_bytes)
     print(f"[kernel D blend_bwd] {label}: tiles {n_tiles} ({n_busy} with instances), "
           f"instances {int(counts.sum())} (longest tile {int(counts.max())}), C={C} (Cf={cf}), "
-          f"max abs err {err:.3e} (worst component at {worst:.3f} of its tolerance), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; work: {n_eval} pairs evaluated, "
+          f"the step's D1s + D2 on kernel C's checkpoints: max abs err {err:.3e} (worst "
+          f"component at {worst:.3f} of its tolerance), {ms:.4f} ms; standalone D1 + D1s + "
+          f"D2: max abs err {float(err_d_rows.max()):.3e}, {ms_d:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; work: {n_eval} pairs evaluated, "
           f"{n_incl} included, {n_read} instances read, {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})", flush=True)
     print(f"[kernel D blend_bwd] {label}: D1 T checkpoints {ms1:.4f} ms (plain, with the "
@@ -272,11 +364,14 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
           f"{ck.t_start.shape[0]} launched); D1 vs plain: stop mismatches off near-ties "
           f"{e1['stop_mismatch']}, near-ties {e1['near_ties']}, T rel {e1['t_rel']:.3e}, "
           f"T_final rel {e1['t_final_rel']:.3e}, chunk sums {e1['sum_rel']:.3e} of the "
-          f"largest; D1s vs plain: {sums_rel:.3e} of the largest sum; D2 vs plain: max abs err {float(err2_rows.max()):.3e} (worst component "
-          f"at {worst2:.3f} of its tolerance)", flush=True)
+          f"largest; kernel C's checkpoints vs D1's: {sum(mism.values())} values differ; "
+          f"D1s vs plain: {sums_rel:.3e} of the largest sum; D2 vs plain: max abs err "
+          f"{float(err2_rows.max()):.3e} (worst component at {worst2:.3f} of its tolerance)",
+          flush=True)
     if main:
         src = "mygauhuman_torch/csrc/blend_bwd.cu"
         tpu = "mygauhuman_tpu/ops/pallas_blend_bwd.py:51"
+        # the step's kernel D: D1s + D2 on kernel C's checkpoints
         report["blend_bwd"] = dict(
             name="blend_bwd", route="cuda", source=src, replaces=tpu, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -407,11 +502,15 @@ def train_bench(scene, cfg, train, dev, report):
         bwd_us = sum(device_us(e, total=True) for e in prof.events()
                      if e.name.startswith("autograd::engine::evaluate_function")) / PROFILE_FRAMES
         d_us = sum(device_us(e) for e in kernels_ if "blend_bwd" in e.key) / PROFILE_FRAMES
+        c_us = sum(device_us(e) for e in kernels_ if "blend_fwd" in e.key) / PROFILE_FRAMES
+        d1_steps = sum(e.count for e in kernels_ if "blend_bwd_ckpt" in e.key)
+        require(d1_steps == 0, f"D1 was launched {d1_steps} times in the profiled steps")
         print(f"[profile] train step under the profiler: {wall_us:.0f} us/step wall, "
               f"{busy_us:.0f} us/step device busy ({100 * busy_us / wall_us:.1f}%), "
-              f"{launches_:.0f} kernel launches/step; backward (autograd engine) "
+              f"{launches_:.0f} kernel launches/step (no D1); backward (autograd engine) "
               f"{bwd_us:.0f} us/step of device time, the rest {busy_us - bwd_us:.0f} us; "
-              f"kernel D {d_us:.1f} us/step ({100 * d_us / busy_us:.2f}% of device time)")
+              f"kernel D (D1s + D2) {d_us:.1f} us/step ({100 * d_us / busy_us:.2f}% of device "
+              f"time); kernel C (checkpoint mode) {c_us:.1f} us/step")
         for e in sorted(kernels_, key=device_us, reverse=True)[:10]:
             print(f"[profile]   {device_us(e) / PROFILE_FRAMES:8.1f} us/step "
                   f"{e.count / PROFILE_FRAMES:5.1f}x  {e.key[:90]}")
@@ -448,10 +547,14 @@ def train_bench(scene, cfg, train, dev, report):
               for a, b in windows), flush=True)
     print(f"[train] loss per iteration {np.round(loss, 4).tolist()}")
     print(f"[train] PSNR per iteration {np.round(psnr, 3).tolist()}")
-    kernel_d = ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")
-    for name in ("knn", "deform", "blend_fwd") + kernel_d:
+    # the loop's backward runs D1s and D2 on kernel C's checkpoints: no D1
+    for name in ("knn", "deform", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+                 "blend_bwd_sums", "blend_bwd_rows"):
         require(launches[name] > 0, f"kernel {name} was not launched in the train loop")
-    for name in kernel_d:
+    require(launches["blend_bwd_ckpt"] == 0, "D1 was launched in the train loop")
+    require(launches["blend_fwd_ckpt"] == launches["blend_bwd"],
+            "a differentiated forward without its backward, or the reverse")
+    for name in ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows"):
         report[name]["launches"] = launches[name]
     require(np.isfinite(loss[-1]), "the train loop ended with a non-finite loss")
     # learning is read on the last 10 iterations before the first event: each
@@ -485,7 +588,12 @@ def main() -> None:
     from mygauhuman_torch.models.io import load_ply, save_ply
     from mygauhuman_torch.ops import cuda_lib
     from mygauhuman_torch.ops.pallas_deform import deform_rows_cuda, deform_rows_plain
-    from mygauhuman_torch.ops.pallas_knn import knn_small_refs_cuda, knn_small_refs_plain
+    from mygauhuman_torch.ops.pallas_knn import (
+        KERNEL_QUERIES_PER_BLOCK as KNN_QUERIES_PER_BLOCK,
+        KERNEL_WARPS_PER_BLOCK as KNN_WARPS_PER_BLOCK,
+        knn_small_refs_cuda,
+        knn_small_refs_plain,
+    )
     from mygauhuman_torch.ops.rasterize import RasterizerConfig
     from mygauhuman_torch.render import render_frame
     from mygauhuman_torch.utils.transforms import inverse_sigmoid
@@ -548,25 +656,35 @@ def main() -> None:
     # kernel A
     (q_main, r_main), kw = seen["knn"]
     require(kw.get("k") == 1 and q_main.shape[0] == state.capacity, "unexpected KNN call")
+    # the training loop's queries after densify (capacity 16,384): the SMPL
+    # vertices resampled with seeded jitter
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pick = torch.randint(0, r_main.shape[0], (16384,), generator=gen, device=dev)
+    q_loop = r_main[pick] + 0.01 * torch.randn((16384, 3), generator=gen, device=dev)
     knn_cases = [("main path", q_main, r_main, 1, False),
                  ("capacity x verts", scene.gt_state.params.xyz, r_main, 1, False),
-                 ("init self, k=3", r_main, r_main, 3, True)]
+                 ("init self, k=3", r_main, r_main, 3, True),
+                 ("loop after densify", q_loop, r_main, 1, False)]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, q, r, k, excl in knn_cases:
         d_k, i_k = knn_small_refs_cuda(q, r, k, exclude_self=excl)
         d_p, i_p = knn_small_refs_plain(q, r, k, exclude_self=excl)
         torch.cuda.synchronize()
-        diff = i_k != i_p
-        # equal indices, except at near-ties, where the distances agree
-        near_tie = (d_k - d_p).abs() <= 1e-6 * d_p.abs().clamp(min=1e-30)
-        require(bool((~diff | near_tie).all()), f"KNN {label}: indices differ off ties")
+        # -fmad=false and the plain version's operation order: bit-equal
+        require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
+                f"KNN {label}: {int((i_k != i_p).sum())} indices and "
+                f"{int((d_k != d_p).sum())} distances differ from the plain version")
         err = float((d_k - d_p).abs().max())
         ms = cuda_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl))
         plain_ms = cuda_ms(lambda: knn_small_refs_plain(q, r, k, exclude_self=excl), reps=5)
         lib_ms = cuda_ms(lambda: torch.cdist(q, r).topk(k, dim=1, largest=False), reps=5)
+        blocks = -(-q.shape[0] // KNN_QUERIES_PER_BLOCK)
         print(f"[kernel A knn] {label}: Q={q.shape[0]} R={r.shape[0]} k={k} "
-              f"index mismatches {int(diff.sum())}, max abs d2 err {err:.3e}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms",
-              flush=True)
+              f"bit-equal to the plain version (max abs d2 err {err:.3e}), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms; "
+              f"{blocks} blocks, {blocks * KNN_WARPS_PER_BLOCK / n_sm:.1f} warps per SM "
+              f"on {n_sm} SMs", flush=True)
+        require(ms < lib_ms, f"KNN {label}: kernel {ms} ms not faster than cdist+topk")
         if label == "main path":
             Q, R = q.shape[0], r.shape[0]   # ~11 fp32 ops per pair (csrc/knn.cu)
             b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
@@ -602,47 +720,12 @@ def main() -> None:
                                     bound_by=b_by, library_ms=None)
 
     # kernel C: planar at 512^2 (the main path), tile-major at 208x144
-    for label, key, planar in ((f"{BENCH['width']}x{BENCH['height']} planar",
+    for label, key, planar in ((f"serving {BENCH['width']}x{BENCH['height']} planar",
                                 "blend_rows_raw", True),
-                               ("208x144 tile-major", "blend_tiles_raw", False)):
+                               ("serving 208x144 tile-major", "blend_tiles_raw", False)):
         (data, starts, counts, tile_base), kw = seen[key]
-        kw = dict(kw, planar=planar)
-        got = pb.blend_instances_cuda(data, starts, counts, tile_base, **kw)
-        want = pb.blend_instances_plain(data, starts, counts, tile_base, **kw)
-        torch.cuda.synchronize()
-        C = kw["n_channels"]
-        # [C+3, H, W] or [T, C+3, P]: move the row axis first
-        err_rows = (got - want).abs().movedim(0 if planar else 1, 0).reshape(C + 3, -1)
-        err_depth = float(err_rows[C + 1].max())
-        err = float(torch.cat([err_rows[:C + 1], err_rows[C + 2:]]).max())
-        require(torch.isfinite(got).all() and err <= 1e-4 and err_depth <= 1e-3,
-                f"blend {label}: max abs err {err} (depth row {err_depth})")
-        ms = cuda_ms(lambda: pb.blend_instances_cuda(data, starts, counts, tile_base, **kw))
-        plain_ms = cuda_ms(lambda: pb.blend_instances_plain(data, starts, counts, tile_base,
-                                                            **kw), reps=3, warmup=1)
-        n_tiles = kw["n_tiles"]
-        print(f"[kernel C blend_fwd] {label}: tiles {n_tiles}, instances "
-              f"{int(counts.sum())}, C={C}, max abs err {err:.3e} (depth row "
-              f"{err_depth:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        # the work these inputs need: pairs evaluated before each pixel stops,
-        # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
-        # rows the kernel loads (x .. depth, features) of the instances some
-        # pixel evaluates, starts and counts, and the output
-        _, n_eval, n_incl, n_read = pb._blend_instances_plain(
-            data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=kw["tiles_x"],
-            n_channels=C, tile_w=kw["tile_w"], tile_h=kw["tile_h"])
-        ops = 20.0 * n_eval + (2.0 * (C + 2) + 4.0) * n_incl
-        nbytes = (7 + C) * 4 * n_read + 8 * n_tiles + got.numel() * 4
-        b_ms, b_by = bound(ops, nbytes)
-        print(f"[kernel C blend_fwd] {label} work: {n_eval} (pixel, instance) pairs "
-              f"evaluated, {n_incl} included, {n_read} instances read, "
-              f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})")
-        if planar:
-            report["blend_fwd"] = dict(
-                name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
-                replaces="mygauhuman_tpu/ops/pallas_blend.py:362",
-                max_abs_err=max(err, err_depth), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+        check_kernel_c(label, data, starts, counts, tile_base, dict(kw, planar=planar), pb,
+                       pbb, report=report if planar else None)
 
     # ---- phase 3: the serving render at the bench point -------------------
     cuda_lib.reset_launches()
@@ -659,6 +742,7 @@ def main() -> None:
     for name in ("knn", "deform", "blend_fwd"):
         require(launches[name] > 0, f"kernel {name} was not launched on the main path")
         report[name]["launches"] = launches[name]
+    require(launches["blend_fwd_ckpt"] == 0, "the no-grad serving forward wrote checkpoints")
     for v, (d, r) in enumerate(zip(deformed, replayed)):
         for out in (d, r):
             for f in ("render", "render_depth", "render_alpha", "normal", "albedo"):
@@ -765,6 +849,7 @@ def main() -> None:
     served_launches = dict(cuda_lib.LAUNCHES)
     for name in ("knn", "deform", "blend_fwd"):
         require(served_launches[name] > 0, f"served size: kernel {name} not launched")
+    require(served_launches["blend_fwd_ckpt"] == 0, "served size: checkpoints written")
     for v, out in enumerate(outs):
         cover = float((out.render_alpha > 0.01).float().mean())
         require(bool(torch.isfinite(out.render).all()) and cover > 0.01,
@@ -793,18 +878,25 @@ def main() -> None:
           f"{FPS_FRAMES} frames; launches in the 4-view check {served_launches}")
 
     # ---- phase 5: branch-A training ---------------------------------------
-    # kernel D vs its plain version on the inputs of a training step's
-    # backward, at the bench point (forward planar) and at 208x144 (forward
-    # tile-major); after the serving phases, so that they are timed as before
-    # any training
+    # kernels C and D vs their plain versions on the inputs of a training
+    # step's forward (checkpoint mode) and backward, at the bench point
+    # (forward planar) and at 208x144 (forward tile-major); after the serving
+    # phases, so that they are timed as before any training
     train = make_trainer(scene, cfg, dev)
     narrow = narrow_batch(scene, narrow_cam, b0, cfg, _masks)
     for label, batch in ((f"{BENCH['width']}x{BENCH['height']}", b0), ("208x144", narrow)):
-        with capture(pb, "blend_pallas_raw", seen), capture(pbb, "blend_tiles_bwd_raw", seen):
+        tseen: dict = {}
+        with capture(pb, "blend_rows_raw", tseen), capture(pb, "blend_tiles_raw", tseen), \
+                capture(pbb, "blend_tiles_bwd_from_ckpt_raw", tseen):
             train["step"].loss_and_grads(train["ts"], batch, 0)
-        C = seen.pop("blend_pallas_raw")[1]["n_channels"]
-        check_kernel_d(label, seen.pop("blend_tiles_bwd_raw"), C, report, pb, pbb,
-                       main=batch is b0)
+        planar = "blend_rows_raw" in tseen
+        (data, starts, counts, tile_base), kw = tseen["blend_rows_raw" if planar
+                                                      else "blend_tiles_raw"]
+        require(kw.get("checkpoints") is True, f"training {label}: no checkpoint mode")
+        check_kernel_c(f"training {label} {'planar' if planar else 'tile-major'}", data,
+                       starts, counts, tile_base, dict(kw, planar=planar), pb, pbb)
+        check_kernel_d(label, tseen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"],
+                       report, pb, pbb, main=batch is b0)
     train_gpu_vs_cpu(dev)
     train_bench(scene, cfg, train, dev, report)
 

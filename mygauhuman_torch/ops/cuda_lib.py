@@ -13,9 +13,11 @@ wrappers pass it to `check()`, which raises on anything but 0.
 `LAUNCHES` counts kernel launches per kernel name. A wrapper adds one right
 after it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
-Kernel D is three launches, each with its own count (`blend_bwd_ckpt`,
-`blend_bwd_sums`, `blend_bwd_rows`); `blend_bwd` counts whole backward
-passes (all three launched).
+Kernel C counts every launch as `blend_fwd` and its checkpoint-mode
+launches (a differentiated forward) also as `blend_fwd_ckpt`. Kernel D is
+three launches, each with its own count (`blend_bwd_ckpt`, `blend_bwd_sums`,
+`blend_bwd_rows`); `blend_bwd` counts whole backward passes (D1s and D2
+launched, after D1 or after kernel C's checkpoint mode).
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ SOURCES = {
     "blend_bwd": ("blend_bwd.cu", []),
 }
 
-LAUNCHES = {name: 0 for name in (*SOURCES, "blend_bwd_ckpt", "blend_bwd_sums",
-                                  "blend_bwd_rows")}
+LAUNCHES = {name: 0 for name in (*SOURCES, "blend_fwd_ckpt", "blend_bwd_ckpt",
+                                  "blend_bwd_sums", "blend_bwd_rows")}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -55,7 +57,7 @@ _SIGNATURES = {
     "deform": {"deform_rows": [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]},
     "blend_fwd": {"blend_fwd": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
-                                _PTR]},
+                                _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]},
     "blend_bwd": {
         "blend_bwd_ckpt": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                            _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR],

@@ -14,10 +14,18 @@ on CUDA tensors and `blend_instances_plain`, the masked-cumprod spec over
 the same slices, on CPU tensors. Output rows: C colours, sum w, sum w depth,
 final T; `finish_planar` / `finish_tiles` add the background.
 
-`blend_pallas` differentiates with respect to the per-Gaussian inputs: its
-backward runs kernel D (`ops/pallas_blend_bwd.py`) for per-instance gradient
-rows and sums them per Gaussian itself, in a fixed order, so autograd never
-differentiates the instance gather (whose CUDA backward would use atomics).
+With `checkpoints=True` the same call also returns the `Checkpoints` that
+kernel D's backward reads (T before every CHUNK-instance chunk of a tile's
+list, each pixel's stop and T_final, the slot map): kernel C writes them in
+the same pass on CUDA tensors, `blend_fwd_checkpoints_plain` computes them
+on CPU tensors.
+
+`blend_pallas` differentiates with respect to the per-Gaussian inputs: a
+differentiated forward keeps the checkpoints, and the backward runs kernel
+D's chunk launches from them (`ops/pallas_blend_bwd.py`) for per-instance
+gradient rows and sums them per Gaussian itself, in a fixed order, so
+autograd never differentiates the instance gather (whose CUDA backward
+would use atomics). A forward without grad writes no checkpoints.
 """
 from __future__ import annotations
 
@@ -26,17 +34,49 @@ from typing import NamedTuple
 import torch
 
 from mygauhuman_torch.ops import cuda_lib
-from mygauhuman_torch.ops.blend import BlendOutput, composite, tile_pixels
+from mygauhuman_torch.ops.blend import BlendOutput, composite, tile_pixels, transmittance
 
 HDR = 8            # header rows before the feature rows
 MAX_CHANNELS = 32  # kernels C and D's register accumulator width
 SMEM_LIMIT = 48 * 1024
+CHUNK = 32         # instances per checkpoint chunk (csrc/blend_fwd.cu, blend_bwd.cu CH)
+PLAIN_TILES = 64   # tiles per step of the chunked plain versions ([64, K, P] terms)
 
 
 class InstanceData(NamedTuple):
     data: torch.Tensor    # [8 + ceil8(C), NS] f32
     starts: torch.Tensor  # [T] i32 column offset of each tile's slice
     counts: torch.Tensor  # [T] i32 instances per tile
+
+
+class Checkpoints(NamedTuple):
+    """What kernel D's chunk launches read: written by kernel C's
+    checkpoint mode (or D1), the chunk sums by D1s. Tile t's chunks c <
+    ceil(count_t / chunk) take slots off_t + c, off_t the chunks of the
+    tiles before it, out of G = ceil(NS / chunk) + T slots (enough for
+    disjoint slices)."""
+    t_start: torch.Tensor    # [G, P] T before the chunk (T_final once stopped)
+    chunk_sum: torch.Tensor  # [G, P] sum of w q over the chunk's included instances
+    stop: torch.Tensor       # [T, P] i32 first failing instance (count if none)
+    t_final: torch.Tensor    # [T, P]
+    chunk_map: torch.Tensor  # [G, 2] i32 (tile, chunk) of each slot in use
+    n_chunks: torch.Tensor   # [1] i32 slots in use
+
+
+def max_chunks(ns: int, n_tiles: int, chunk: int = CHUNK) -> int:
+    return -(-ns // chunk) + n_tiles
+
+
+def empty_checkpoints(ns, n_tiles, P, device) -> Checkpoints:
+    """Uninitialised checkpoint scratch for a kernel to fill."""
+    G = max_chunks(ns, n_tiles)
+    return Checkpoints(
+        t_start=torch.empty((G, P), dtype=torch.float32, device=device),
+        chunk_sum=torch.empty((G, P), dtype=torch.float32, device=device),
+        stop=torch.empty((n_tiles, P), dtype=torch.int32, device=device),
+        t_final=torch.empty((n_tiles, P), dtype=torch.float32, device=device),
+        chunk_map=torch.empty((G, 2), dtype=torch.int32, device=device),
+        n_chunks=torch.empty((1,), dtype=torch.int32, device=device))
 
 
 def attr_matrix(means2d, conics, opacities, depths, features) -> torch.Tensor:
@@ -121,24 +161,112 @@ def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
     return out, n_eval, n_incl, n_read
 
 
+def _chunk_layout(counts, n_tiles, chunk):
+    """Chunks per tile, each tile's first slot, and the slots in use."""
+    nch = torch.div(counts.long().clamp(min=0) + chunk - 1, chunk, rounding_mode="floor")
+    off = torch.cumsum(nch, 0) - nch
+    return nch, off, int(nch.sum()) if n_tiles else 0
+
+
+def _tile_group(data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk):
+    """Instance columns of tiles [t0, t1), padded to whole chunks."""
+    ns = data.shape[1]
+    dev = data.device
+    cnt = counts[t0:t1].long().clamp(min=0)
+    nchk = max(-(-int(cnt.max()) // chunk), 1)
+    k = torch.arange(nchk * chunk, device=dev)
+    pos = torch.clamp(starts[t0:t1].long()[:, None] + k[None, :], 0, max(ns - 1, 0))
+    valid = k[None, :] < cnt[:, None]
+    px, py = tile_pixels(torch.arange(t0, t1, device=dev) + tile_base, tiles_x,
+                         tile_w, tile_h)
+    return data[:, pos], valid, pos, k, nchk, px, py
+
+
+def _checkpoints_plain(data, starts, counts, tile_base, cot, C, *, n_tiles, tiles_x,
+                       tile_w, tile_h, chunk) -> Checkpoints:
+    """The checkpoints from kernel C's plain per-pixel T (the log-space
+    cumulative product of `ops/blend.py::transmittance`); the chunk sums of
+    w q at the cotangents `cot` [T, P, Cf + 3] (feature pad past C zero), or
+    zeros where `cot` is None."""
+    P = tile_w * tile_h
+    cf = data.shape[0] - HDR
+    dev = data.device
+    G = max_chunks(data.shape[1], n_tiles, chunk)
+    nch_all, off_all, total = _chunk_layout(counts, n_tiles, chunk)
+    if total > G:
+        raise ValueError(f"{total} chunks exceed the {G} slots: tile slices overlap")
+    t_start = torch.zeros((G, P), dtype=torch.float32, device=dev)
+    chunk_sum = torch.zeros((G, P), dtype=torch.float32, device=dev)
+    stop = torch.zeros((n_tiles, P), dtype=torch.int32, device=dev)
+    t_final = torch.ones((n_tiles, P), dtype=torch.float32, device=dev)
+    chunk_map = torch.full((G, 2), -1, dtype=torch.int32, device=dev)
+    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), nch_all)
+    chunk_map[:total, 0] = tiles.int()
+    chunk_map[:total, 1] = (torch.arange(total, device=dev) - off_all[tiles]).int()
+    for t0 in range(0, n_tiles, PLAIN_TILES):
+        t1 = min(t0 + PLAIN_TILES, n_tiles)
+        cols, valid, _, k, nchk, px, py = _tile_group(
+            data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
+        tr = transmittance(cols[0], cols[1], cols[2], cols[3], cols[4], cols[5], valid,
+                           px, py)
+        fail = tr.ok & ~tr.include          # valid but T would fall below 1e-4
+        cnt = counts[t0:t1].long().clamp(min=0)
+        stp = torch.where(fail.any(dim=1), fail.int().argmax(dim=1), cnt[:, None])
+        first = torch.arange(nchk, device=dev) * chunk
+        ts = torch.where(first[None, :, None] < stp[:, None, :], tr.t_before[:, first, :],
+                         tr.final_t[:, None, :])
+        b_idx, c_idx = torch.nonzero(torch.arange(nchk, device=dev)[None, :]
+                                     < nch_all[t0:t1, None], as_tuple=True)
+        slots = off_all[t0:t1][b_idx] + c_idx
+        t_start[slots] = ts[b_idx, c_idx]
+        if cot is not None:
+            g = cot[t0:t1]
+            q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), g[..., :C])
+                 + g[:, None, :, cf] + cols[6][..., None] * g[:, None, :, cf + 1])
+            w = torch.where(tr.include, tr.a * tr.t_before, torch.zeros_like(tr.a))
+            sums = (w * q).reshape(t1 - t0, nchk, chunk, P).sum(dim=2)
+            chunk_sum[slots] = sums[b_idx, c_idx]
+        stop[t0:t1] = stp.int()
+        t_final[t0:t1] = tr.final_t
+    n_chunks = torch.tensor([total], dtype=torch.int32, device=dev)
+    return Checkpoints(t_start, chunk_sum, stop, t_final, chunk_map, n_chunks)
+
+
+def blend_fwd_checkpoints_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
+                                tile_w=16, tile_h=16, chunk=CHUNK) -> Checkpoints:
+    """Plain PyTorch version of kernel C's checkpoint mode: everything but
+    the chunk sums (zeros, left for D1s)."""
+    return _checkpoints_plain(data, starts, counts, tile_base, None, 0, n_tiles=n_tiles,
+                              tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h, chunk=chunk)
+
+
 def blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
-                          n_channels, tile_w=16, tile_h=16, planar=False):
+                          n_channels, tile_w=16, tile_h=16, planar=False,
+                          checkpoints=False):
     """Plain PyTorch version of kernel C: tile-major [T, C+3, P] or, with
-    planar=True, [C+3, (T / tiles_x) tile_h, tiles_x tile_w]."""
+    planar=True, [C+3, (T / tiles_x) tile_h, tiles_x tile_w]; with
+    checkpoints=True, (that, blend_fwd_checkpoints_plain's Checkpoints)."""
     out, _, _, _ = _blend_instances_plain(
         data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=tiles_x,
         n_channels=n_channels, tile_w=tile_w, tile_h=tile_h)
-    if not planar:
+    if planar:
+        n_rows = n_tiles // tiles_x
+        x = out.reshape(n_rows, tiles_x, n_channels + 3, tile_h, tile_w)
+        out = x.permute(2, 0, 3, 1, 4).reshape(n_channels + 3, n_rows * tile_h,
+                                               tiles_x * tile_w)
+    if not checkpoints:
         return out
-    n_rows = n_tiles // tiles_x
-    x = out.reshape(n_rows, tiles_x, n_channels + 3, tile_h, tile_w)
-    return x.permute(2, 0, 3, 1, 4).reshape(n_channels + 3, n_rows * tile_h,
-                                            tiles_x * tile_w)
+    return out, blend_fwd_checkpoints_plain(data, starts, counts, tile_base,
+                                            n_tiles=n_tiles, tiles_x=tiles_x,
+                                            tile_w=tile_w, tile_h=tile_h)
 
 
 def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
-                         n_channels, tile_w=16, tile_h=16, planar=False):
-    """Launch kernel C; same outputs as blend_instances_plain."""
+                         n_channels, tile_w=16, tile_h=16, planar=False,
+                         checkpoints=False):
+    """Launch kernel C; same outputs as blend_instances_plain (with
+    checkpoints=True, the Checkpoints where blend_fwd_checkpoints_plain
+    defines them: slots < n_chunks; the chunk sums are left for D1s)."""
     P = tile_w * tile_h
     C = n_channels
     if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
@@ -147,9 +275,8 @@ def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
         raise ValueError(f"instance matrix has {data.shape[0]} rows, needs {HDR + C}")
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"kernel C takes 1..{MAX_CHANNELS} channels, got {C}")
-    if (7 + C) * P * 4 > SMEM_LIMIT:
-        raise ValueError(f"tile {tile_w}x{tile_h} with {C} channels exceeds "
-                         "kernel C's shared memory")
+    if P > 1024:
+        raise ValueError(f"kernel C takes tiles of at most 1,024 pixels, got {P}")
     for name, t in (("starts", starts), ("counts", counts)):
         if t.shape != (n_tiles,) or t.device != data.device:
             raise ValueError(f"{name} must be [{n_tiles}] on {data.device}")
@@ -165,37 +292,45 @@ def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
     else:
         out_h = out_w = 0
         out = torch.empty((n_tiles, C + 3, P), dtype=torch.float32, device=data.device)
+    ck = empty_checkpoints(data.shape[1], n_tiles, P, data.device) if checkpoints else None
+    ck_ptrs = ((ck.t_start.shape[0], ck.t_start.data_ptr(), ck.stop.data_ptr(),
+                ck.t_final.data_ptr(), ck.chunk_map.data_ptr(), ck.n_chunks.data_ptr())
+               if checkpoints else (0, None, None, None, None, None))
     fn = cuda_lib.library("blend_fwd").blend_fwd
     err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(),
              n_tiles, int(tile_base), tiles_x, C, tile_w, tile_h, int(planar),
-             out_h, out_w, out.data_ptr(),
+             out_h, out_w, out.data_ptr(), *ck_ptrs,
              torch.cuda.current_stream(data.device).cuda_stream)
     cuda_lib.check("blend_fwd", err)
     cuda_lib.LAUNCHES["blend_fwd"] += 1
-    return out
+    if not checkpoints:
+        return out
+    cuda_lib.LAUNCHES["blend_fwd_ckpt"] += 1
+    return out, ck
 
 
 def _blend_raw(data, starts, counts, tile_base, planar, **kw):
-    if data.is_cuda:
-        return blend_instances_cuda(data, starts, counts, tile_base, planar=planar, **kw)
-    return blend_instances_plain(data, starts, counts, tile_base, planar=planar, **kw)
+    fn = blend_instances_cuda if data.is_cuda else blend_instances_plain
+    return fn(data, starts, counts, tile_base, planar=planar, **kw)
 
 
 def blend_rows_raw(data, starts, counts, tile_base=0, *, n_tiles, tiles_x,
-                   n_channels, tile_w=16, tile_h=16):
-    """Planar [C+3, (n_tiles / tiles_x) tile_h, tiles_x tile_w] blend."""
+                   n_channels, tile_w=16, tile_h=16, checkpoints=False):
+    """Planar [C+3, (n_tiles / tiles_x) tile_h, tiles_x tile_w] blend (and
+    the Checkpoints with checkpoints=True)."""
     return _blend_raw(data, starts, counts, tile_base, True, n_tiles=n_tiles,
                       tiles_x=tiles_x, n_channels=n_channels, tile_w=tile_w,
-                      tile_h=tile_h)
+                      tile_h=tile_h, checkpoints=checkpoints)
 
 
 def blend_tiles_raw(data, starts, counts, tile_base=0, *, n_tiles, tiles_x,
-                    n_channels, tile_w=16, tile_h=16):
+                    n_channels, tile_w=16, tile_h=16, checkpoints=False):
     """Tile-major [n_tiles, C+3, P] blend of tiles [tile_base, tile_base +
-    n_tiles) of a tiles_x-wide grid."""
+    n_tiles) of a tiles_x-wide grid (and the Checkpoints with
+    checkpoints=True)."""
     return _blend_raw(data, starts, counts, tile_base, False, n_tiles=n_tiles,
                       tiles_x=tiles_x, n_channels=n_channels, tile_w=tile_w,
-                      tile_h=tile_h)
+                      tile_h=tile_h, checkpoints=checkpoints)
 
 
 def finish_planar(planar, bg, *, n_channels, width, height):
@@ -221,23 +356,24 @@ def finish_tiles(tiles_out, bg, *, n_channels, width, height, tile_w, tile_h):
 
 
 def blend_pallas_raw(inst: InstanceData, bg, *, width, height, n_channels,
-                     tile_w=16, tile_h=16):
+                     tile_w=16, tile_h=16, checkpoints=False):
     """(image [H, W, C], alpha, depth, final_t) through the planar layout
-    where the TPU row kernel would run, the tile-major one elsewhere."""
+    where the TPU row kernel would run, the tile-major one elsewhere; with
+    checkpoints=True, (those four, the Checkpoints)."""
     tw = -(-width // tile_w)
     th = -(-height // tile_h)
     T = tw * th
-    if row_mode_supported(T, tw, tile_w, tile_h):
-        planar = blend_rows_raw(inst.data, inst.starts, inst.counts, 0, n_tiles=T,
-                                tiles_x=tw, n_channels=n_channels,
-                                tile_w=tile_w, tile_h=tile_h)
-        return finish_planar(planar, bg, n_channels=n_channels, width=width,
-                             height=height)
-    tiles_out = blend_tiles_raw(inst.data, inst.starts, inst.counts, 0, n_tiles=T,
-                                tiles_x=tw, n_channels=n_channels,
-                                tile_w=tile_w, tile_h=tile_h)
-    return finish_tiles(tiles_out, bg, n_channels=n_channels, width=width,
-                        height=height, tile_w=tile_w, tile_h=tile_h)
+    planar = bool(row_mode_supported(T, tw, tile_w, tile_h))
+    res = (blend_rows_raw if planar else blend_tiles_raw)(
+        inst.data, inst.starts, inst.counts, 0, n_tiles=T, tiles_x=tw,
+        n_channels=n_channels, tile_w=tile_w, tile_h=tile_h, checkpoints=checkpoints)
+    out, ckpt = res if checkpoints else (res, None)
+    if planar:
+        outs = finish_planar(out, bg, n_channels=n_channels, width=width, height=height)
+    else:
+        outs = finish_tiles(out, bg, n_channels=n_channels, width=width, height=height,
+                            tile_w=tile_w, tile_h=tile_h)
+    return (outs, ckpt) if checkpoints else outs
 
 
 def _tile_major(x, th, tw, tile_h, tile_w):
@@ -265,19 +401,25 @@ def per_gaussian_rows(rows, sorted_rank, rank, n, max_tiles_per_gaussian):
 
 
 class _BlendPallas(torch.autograd.Function):
-    """Forward: kernel C. Backward: the background terms, kernel D over the
-    tile-major cotangents, then the per-Gaussian reduction."""
+    """Forward: kernel C, writing kernel D's checkpoints when the call is
+    differentiated. Backward: the background terms, then kernel D's chunk
+    launches (D1s, D2) from those checkpoints over the tile-major
+    cotangents, then the per-Gaussian reduction."""
 
     @staticmethod
     def forward(ctx, sorted_rank, order, rank, starts, counts, means2d, conics,
                 opacities, features, depths, bg, width, height, tile_w, tile_h,
-                max_tiles_per_gaussian):
+                max_tiles_per_gaussian, differentiated):
         inst = build_instance_data(sorted_rank, starts, counts, means2d, conics,
                                    opacities, depths, features, order=order)
-        image, alpha, depth, final_t = blend_pallas_raw(
-            inst, bg.float(), width=width, height=height, n_channels=features.shape[-1],
-            tile_w=tile_w, tile_h=tile_h)
-        ctx.save_for_backward(inst.data, sorted_rank, rank, starts, counts, bg, final_t)
+        res = blend_pallas_raw(inst, bg.float(), width=width, height=height,
+                               n_channels=features.shape[-1], tile_w=tile_w, tile_h=tile_h,
+                               checkpoints=differentiated)
+        if not differentiated:
+            return res
+        (image, alpha, depth, final_t), ckpt = res
+        ctx.save_for_backward(inst.data, sorted_rank, rank, starts, counts, bg, final_t,
+                              *ckpt)
         ctx.geom = (width, height, tile_w, tile_h, max_tiles_per_gaussian,
                     means2d.shape[0], features.shape[-1])
         return image, alpha, depth, final_t
@@ -286,7 +428,7 @@ class _BlendPallas(torch.autograd.Function):
     def backward(ctx, g_image, g_alpha, g_depth, g_final_t):
         from mygauhuman_torch.ops.pallas_blend_bwd import blend_pallas_bwd_raw
 
-        data, sorted_rank, rank, starts, counts, bg, final_t = ctx.saved_tensors
+        data, sorted_rank, rank, starts, counts, bg, final_t, *ckpt = ctx.saved_tensors
         width, height, tile_w, tile_h, S, n, c = ctx.geom
         bg = bg.float()
         # colour = raw + final_t * bg
@@ -300,11 +442,11 @@ class _BlendPallas(torch.autograd.Function):
         th = -(-height // tile_h)
         rows = blend_pallas_bwd_raw(data, starts, counts,
                                     _tile_major(cot, th, tw, tile_h, tile_w),
-                                    width=width, height=height, tile_w=tile_w,
-                                    tile_h=tile_h, n_channels=c)
+                                    Checkpoints(*ckpt), width=width, height=height,
+                                    tile_w=tile_w, tile_h=tile_h, n_channels=c)
         per_g = per_gaussian_rows(rows, sorted_rank, rank, n, S)
         return (None, None, None, None, None, per_g[:, 0:2], per_g[:, 2:5], per_g[:, 5],
-                per_g[:, HDR:HDR + c], per_g[:, 6], dbg, None, None, None, None, None)
+                per_g[:, HDR:HDR + c], per_g[:, 6], dbg, None, None, None, None, None, None)
 
 
 def blend_pallas(sorted_rank, order, rank, starts, counts, means2d, conics,
@@ -313,7 +455,10 @@ def blend_pallas(sorted_rank, order, rank, starts, counts, means2d, conics,
     """Differentiable blend from binning's rank-space lists. `counts` must
     already be capped at tile_capacity, and max_tiles_per_gaussian must be
     the binning's. Kernels C and D on CUDA tensors, their plain versions on
-    CPU tensors."""
+    CPU tensors. Only a differentiated call (grad mode on, an input that
+    requires grad) keeps checkpoints for the backward."""
+    differentiated = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (means2d, conics, opacities, features, depths, bg))
     return BlendOutput(*_BlendPallas.apply(
         sorted_rank, order, rank, starts, counts, means2d, conics, opacities, features,
-        depths, bg, width, height, tile_w, tile_h, max_tiles_per_gaussian))
+        depths, bg, width, height, tile_w, tile_h, max_tiles_per_gaussian, differentiated))

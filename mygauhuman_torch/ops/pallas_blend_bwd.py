@@ -15,46 +15,41 @@ launches: D1 cuts each tile's serial chain in T at chunks of CHUNK
 instances, D1s sums w q per chunk (together the `Checkpoints`), D2 replays
 the chunks in parallel into the rows. Each has its plain version here
 (`blend_bwd_checkpoints_plain` for D1 and D1s together,
-`blend_bwd_sums_plain`, `blend_bwd_rows_plain`); the yardstick of the whole, and the CPU path, is
-`blend_tiles_bwd_plain`, autograd of kernel C's plain version with respect
-to the instance matrix. The TPU kernel's 128-lane pad of the rows is
-dropped. The per-Gaussian reduction of these rows lives with the autograd
-wrapper (`ops/pallas_blend.py::blend_pallas`).
+`blend_bwd_sums_plain`, `blend_bwd_rows_plain`); the yardstick of the
+whole, and the CPU path of the standalone backward `blend_tiles_bwd_raw`,
+is `blend_tiles_bwd_plain`, autograd of kernel C's plain version with
+respect to the instance matrix.
+
+A differentiated forward has kernel C write D1's checkpoints
+(`ops/pallas_blend.py`, checkpoint mode), so the backward of
+`blend_pallas` (`blend_pallas_bwd_raw` -> `blend_tiles_bwd_from_ckpt_raw`)
+runs D1s and D2 only, or on CPU tensors their plain versions. D1 stays as
+the standalone backward's first launch and the cross-check of kernel C's
+checkpoints. The TPU kernel's 128-lane pad of the rows is dropped. The
+per-Gaussian reduction of these rows lives with the autograd wrapper
+(`ops/pallas_blend.py::blend_pallas`).
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import torch
 
 from mygauhuman_torch.ops import cuda_lib
-from mygauhuman_torch.ops.blend import tile_pixels, transmittance
 from mygauhuman_torch.ops.pallas_blend import (
+    CHUNK,
     HDR,
     MAX_CHANNELS,
+    PLAIN_TILES,
     SMEM_LIMIT,
+    Checkpoints,
     _blend_instances_plain,
+    _checkpoints_plain,
+    _chunk_layout,
+    _tile_group,
+    empty_checkpoints,
+    max_chunks,
 )
 
-CHUNK = 32            # instances per chunk (csrc/blend_bwd.cu CH)
 ROWS_MAX_PIXELS = 256  # D1s' and D2's block is one tile (launch bounds)
-PLAIN_TILES = 64       # tiles per step of the plain versions ([64, K, P] terms)
-
-
-class Checkpoints(NamedTuple):
-    """D1's and D1s' output. Tile t's chunks c < ceil(count_t / chunk) take slots
-    off_t + c, off_t the chunks of the tiles before it, out of G =
-    ceil(NS / chunk) + T slots (enough for disjoint slices)."""
-    t_start: torch.Tensor    # [G, P] T before the chunk (T_final once stopped)
-    chunk_sum: torch.Tensor  # [G, P] sum of w q over the chunk's included instances
-    stop: torch.Tensor       # [T, P] i32 first failing instance (count if none)
-    t_final: torch.Tensor    # [T, P]
-    chunk_map: torch.Tensor  # [G, 2] i32 (tile, chunk) of each slot in use
-    n_chunks: torch.Tensor   # [1] i32 slots in use
-
-
-def max_chunks(ns: int, n_tiles: int, chunk: int = CHUNK) -> int:
-    return -(-ns // chunk) + n_tiles
 
 
 def _cot(cotangents, cf, n_channels):
@@ -83,75 +78,16 @@ def blend_tiles_bwd_plain(data, starts, counts, tile_base, cotangents, *, n_tile
     return g.T.contiguous()
 
 
-def _chunk_layout(counts, n_tiles, chunk):
-    """Chunks per tile, each tile's first slot, and the slots in use."""
-    nch = torch.div(counts.long().clamp(min=0) + chunk - 1, chunk, rounding_mode="floor")
-    off = torch.cumsum(nch, 0) - nch
-    return nch, off, int(nch.sum()) if n_tiles else 0
-
-
-def _tile_group(data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk):
-    """Instance columns of tiles [t0, t1), padded to whole chunks."""
-    ns = data.shape[1]
-    dev = data.device
-    cnt = counts[t0:t1].long().clamp(min=0)
-    nchk = max(-(-int(cnt.max()) // chunk), 1)
-    k = torch.arange(nchk * chunk, device=dev)
-    pos = torch.clamp(starts[t0:t1].long()[:, None] + k[None, :], 0, max(ns - 1, 0))
-    valid = k[None, :] < cnt[:, None]
-    px, py = tile_pixels(torch.arange(t0, t1, device=dev) + tile_base, tiles_x,
-                         tile_w, tile_h)
-    return data[:, pos], valid, pos, k, nchk, px, py
-
-
 def blend_bwd_checkpoints_plain(data, starts, counts, tile_base, cotangents, *, n_tiles,
                                 tiles_x, tile_w=16, tile_h=16, n_channels=None,
                                 chunk=CHUNK) -> Checkpoints:
-    """Plain PyTorch version of D1, from kernel C's plain per-pixel T (the
-    log-space cumulative product of `ops/blend.py::transmittance`)."""
-    P = tile_w * tile_h
-    cf = data.shape[0] - HDR
-    cotangents, C = _cot(cotangents.float(), cf, n_channels)
-    dev = data.device
-    G = max_chunks(data.shape[1], n_tiles, chunk)
-    nch_all, off_all, total = _chunk_layout(counts, n_tiles, chunk)
-    if total > G:
-        raise ValueError(f"{total} chunks exceed the {G} slots: tile slices overlap")
-    t_start = torch.zeros((G, P), dtype=torch.float32, device=dev)
-    chunk_sum = torch.zeros((G, P), dtype=torch.float32, device=dev)
-    stop = torch.zeros((n_tiles, P), dtype=torch.int32, device=dev)
-    t_final = torch.ones((n_tiles, P), dtype=torch.float32, device=dev)
-    chunk_map = torch.full((G, 2), -1, dtype=torch.int32, device=dev)
-    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=dev), nch_all)
-    chunk_map[:total, 0] = tiles.int()
-    chunk_map[:total, 1] = (torch.arange(total, device=dev) - off_all[tiles]).int()
-    for t0 in range(0, n_tiles, PLAIN_TILES):
-        t1 = min(t0 + PLAIN_TILES, n_tiles)
-        cols, valid, _, k, nchk, px, py = _tile_group(
-            data, starts, counts, tile_base, t0, t1, tiles_x, tile_w, tile_h, chunk)
-        tr = transmittance(cols[0], cols[1], cols[2], cols[3], cols[4], cols[5], valid,
-                           px, py)
-        cot = cotangents[t0:t1]
-        q = (torch.einsum("bkc,bpc->bkp", cols[HDR:HDR + C].permute(1, 2, 0), cot[..., :C])
-             + cot[:, None, :, cf] + cols[6][..., None] * cot[:, None, :, cf + 1])
-        w = torch.where(tr.include, tr.a * tr.t_before, torch.zeros_like(tr.a))
-        B = t1 - t0
-        sums = (w * q).reshape(B, nchk, chunk, P).sum(dim=2)
-        fail = tr.ok & ~tr.include          # valid but T would fall below 1e-4
-        cnt = counts[t0:t1].long().clamp(min=0)
-        stp = torch.where(fail.any(dim=1), fail.int().argmax(dim=1), cnt[:, None])
-        first = torch.arange(nchk, device=dev) * chunk
-        ts = torch.where(first[None, :, None] < stp[:, None, :], tr.t_before[:, first, :],
-                         tr.final_t[:, None, :])
-        b_idx, c_idx = torch.nonzero(torch.arange(nchk, device=dev)[None, :]
-                                     < nch_all[t0:t1, None], as_tuple=True)
-        slots = off_all[t0:t1][b_idx] + c_idx
-        t_start[slots] = ts[b_idx, c_idx]
-        chunk_sum[slots] = sums[b_idx, c_idx]
-        stop[t0:t1] = stp.int()
-        t_final[t0:t1] = tr.final_t
-    n_chunks = torch.tensor([total], dtype=torch.int32, device=dev)
-    return Checkpoints(t_start, chunk_sum, stop, t_final, chunk_map, n_chunks)
+    """Plain PyTorch version of D1 and D1s together, from kernel C's plain
+    per-pixel T (the log-space cumulative product of
+    `ops/blend.py::transmittance`)."""
+    cotangents, C = _cot(cotangents.float(), data.shape[0] - HDR, n_channels)
+    return _checkpoints_plain(data, starts, counts, tile_base, cotangents, C,
+                              n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w,
+                              tile_h=tile_h, chunk=chunk)
 
 
 def _replay_group(data, starts, counts, tile_base, cotangents, ckpt, nch_all, off_all,
@@ -291,6 +227,22 @@ def checkpoint_errors(got: Checkpoints, want: Checkpoints, counts) -> dict:
         sum_rel=top(s_err[keep]) / s_max if s_max > 0 else 0.0)
 
 
+def checkpoint_mismatches(got: Checkpoints, want: Checkpoints, counts) -> dict:
+    """Values that differ, bit for bit, between two checkpoint sets of the
+    same serial product (kernel C's checkpoint mode and D1) where both are
+    defined: the slot count, the map and T of the slots in use, stop and
+    T_final of the tiles that hold instances. The chunk sums are not
+    compared (D1s writes them)."""
+    n = int(want.n_chunks)
+    busy = counts > 0
+    return dict(
+        n_chunks=int(int(got.n_chunks) != n),
+        chunk_map=int((got.chunk_map[:n] != want.chunk_map[:n]).sum()),
+        t_start=int((got.t_start[:n] != want.t_start[:n]).sum()),
+        stop=int((got.stop[busy] != want.stop[busy]).sum()),
+        t_final=int((got.t_final[busy] != want.t_final[busy]).sum()))
+
+
 def _kernel_inputs(name, data, starts, counts, cotangents, n_tiles, P, n_channels):
     """Checked, contiguous inputs of kernel D's launches, and (Cf, C)."""
     if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
@@ -334,18 +286,12 @@ def blend_bwd_ckpt_cuda(data, starts, counts, tile_base, cotangents, *, n_tiles,
     P = tile_w * tile_h
     data, starts, counts, _, _, _ = _kernel_inputs(
         "kernel D1", data, starts, counts, cotangents, n_tiles, P, n_channels)
-    G = max_chunks(data.shape[1], n_tiles)
     dev = data.device
-    ckpt = Checkpoints(
-        t_start=torch.empty((G, P), dtype=torch.float32, device=dev),
-        chunk_sum=torch.empty((G, P), dtype=torch.float32, device=dev),
-        stop=torch.empty((n_tiles, P), dtype=torch.int32, device=dev),
-        t_final=torch.empty((n_tiles, P), dtype=torch.float32, device=dev),
-        chunk_map=torch.empty((G, 2), dtype=torch.int32, device=dev),
-        n_chunks=torch.empty((1,), dtype=torch.int32, device=dev))   # D1's last block
+    ckpt = empty_checkpoints(data.shape[1], n_tiles, P, dev)   # n_chunks: D1's last block
     fn = cuda_lib.library("blend_bwd").blend_bwd_ckpt
     err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(), n_tiles,
-             int(tile_base), tiles_x, tile_w, tile_h, G, ckpt.t_start.data_ptr(),
+             int(tile_base), tiles_x, tile_w, tile_h, ckpt.t_start.shape[0],
+             ckpt.t_start.data_ptr(),
              ckpt.stop.data_ptr(), ckpt.t_final.data_ptr(), ckpt.chunk_map.data_ptr(),
              ckpt.n_chunks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check("blend_bwd_ckpt", err)
@@ -426,11 +372,47 @@ def blend_tiles_bwd_raw(data, starts, counts, tile_base, cotangents, *, n_tiles,
               tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h, n_channels=n_channels)
 
 
-def blend_pallas_bwd_raw(data, starts, counts, cotangents, *, width, height,
-                         tile_w=16, tile_h=16, n_channels=None):
-    """Per-instance gradient rows [NS, D] of a whole width x height image."""
+def blend_tiles_bwd_from_ckpt_cuda(data, starts, counts, tile_base, cotangents,
+                                   ckpt: Checkpoints, *, n_tiles, tiles_x, tile_w=16,
+                                   tile_h=16, n_channels=None):
+    """Launch D1s then D2 on kernel C's checkpoints (ckpt.chunk_sum filled in
+    place); same output as blend_tiles_bwd_plain."""
+    kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+              n_channels=n_channels)
+    ckpt = blend_bwd_sums_cuda(data, starts, counts, tile_base, cotangents, ckpt, **kw)
+    grads = blend_bwd_rows_cuda(data, starts, counts, tile_base, cotangents, ckpt, **kw)
+    cuda_lib.LAUNCHES["blend_bwd"] += 1
+    return grads
+
+
+def blend_tiles_bwd_from_ckpt_plain(data, starts, counts, tile_base, cotangents,
+                                    ckpt: Checkpoints, *, n_tiles, tiles_x, tile_w=16,
+                                    tile_h=16, n_channels=None, chunk=CHUNK):
+    """Plain versions of D1s then D2 on the forward's checkpoints (chunk
+    sums left as they are in `ckpt`)."""
+    kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+              n_channels=n_channels, chunk=chunk)
+    sums = blend_bwd_sums_plain(data, starts, counts, tile_base, cotangents, ckpt, **kw)
+    return blend_bwd_rows_plain(data, starts, counts, tile_base, cotangents,
+                                ckpt._replace(chunk_sum=sums), **kw)
+
+
+def blend_tiles_bwd_from_ckpt_raw(data, starts, counts, tile_base, cotangents,
+                                  ckpt: Checkpoints, *, n_tiles, tiles_x, tile_w=16,
+                                  tile_h=16, n_channels=None):
+    """Per-instance gradient rows [NS, D] of tiles [tile_base, tile_base +
+    n_tiles) from the checkpoints of their differentiated forward."""
+    fn = blend_tiles_bwd_from_ckpt_cuda if data.is_cuda else blend_tiles_bwd_from_ckpt_plain
+    return fn(data, starts, counts, tile_base, cotangents, ckpt, n_tiles=n_tiles,
+              tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h, n_channels=n_channels)
+
+
+def blend_pallas_bwd_raw(data, starts, counts, cotangents, ckpt: Checkpoints, *, width,
+                         height, tile_w=16, tile_h=16, n_channels=None):
+    """Per-instance gradient rows [NS, D] of a whole width x height image,
+    from the checkpoints of its differentiated forward."""
     tw = -(-width // tile_w)
     th = -(-height // tile_h)
-    return blend_tiles_bwd_raw(data, starts, counts, 0, cotangents, n_tiles=tw * th,
-                               tiles_x=tw, tile_w=tile_w, tile_h=tile_h,
-                               n_channels=n_channels)
+    return blend_tiles_bwd_from_ckpt_raw(data, starts, counts, 0, cotangents, ckpt,
+                                         n_tiles=tw * th, tiles_x=tw, tile_w=tile_w,
+                                         tile_h=tile_h, n_channels=n_channels)

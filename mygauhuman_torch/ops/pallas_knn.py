@@ -14,6 +14,8 @@ from mygauhuman_torch.ops import cuda_lib
 
 BIG = 3e38
 QUERY_BLOCK = 4096   # plain version: rows of the distance matrix at a time
+KERNEL_QUERIES_PER_BLOCK = 16   # csrc/knn.cu QPB: a block of 4 warps
+KERNEL_WARPS_PER_BLOCK = 4
 
 
 def argmin_passes(d2: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

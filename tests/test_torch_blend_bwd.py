@@ -1,6 +1,8 @@
 """Port vs JAX package: the blend backward (kernel D's plain version, whole
-and as its two chunked launches D1 / D2) and the differentiable
-instance-list blend `blend_pallas`.
+and as its chunked launches D1 / D1s / D2), the checkpoints a
+differentiated forward returns (kernel C's checkpoint mode, plain) and the
+backward fed by them, and the differentiable instance-list blend
+`blend_pallas`.
 
 The scene is 2 x 2 tiles of 16 x 16 px with C = 19 channels, built by hand
 so that every branch of the backward is taken: a saturating stack (T falls
@@ -14,7 +16,9 @@ version is autograd through the log-space cumsum, so the two agree to
 float32 rounding (measured ~1e-7 relative); the bound is the one the chip
 run holds kernel D to. The chunked plain pieces are held to the same bound,
 on a variant of the scene with an empty tile and a ragged count, at chunks
-of 4 (so the 24-instance capped tiles span six chunks) and of 32.
+of 4 (so the 24-instance capped tiles span six chunks) and of 32. The
+forward's checkpoints are the backward plain version's bit for bit (the
+same log-space T).
 """
 import jax
 import jax.numpy as jnp
@@ -27,10 +31,12 @@ from mygauhuman_tpu.ops.binning import bin_gaussians as jbin
 from mygauhuman_tpu.ops.pallas_blend_bwd import blend_tiles_bwd_raw as jbwd
 from mygauhuman_torch.ops import pallas_blend as tpb
 from mygauhuman_torch.ops.blend import tile_pixels, transmittance
+from mygauhuman_torch.ops import pallas_blend_bwd as tpbb
 from mygauhuman_torch.ops.pallas_blend_bwd import (
     blend_bwd_checkpoints_plain,
     blend_bwd_rows_plain,
     blend_bwd_sums_plain,
+    blend_tiles_bwd_from_ckpt_plain,
     blend_tiles_bwd_plain,
     blend_tiles_bwd_raw,
     max_chunks,
@@ -308,3 +314,67 @@ def test_plain_kernel_d_zeroes_the_feature_pad(chunked):
     rows = blend_bwd_rows_plain(data, starts, counts, 0, noisy, ck, n_channels=C, **kw)
     assert float(rows[:, 8 + C:].abs().max()) == 0.0
     close(rows.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("base", [0, 2])
+def test_forward_checkpoints_are_the_backward_checkpoints(chunked, chunk, base):
+    """The checkpoints of the differentiated plain forward equal
+    blend_bwd_checkpoints_plain's, bit for bit, but the chunk sums (zeros:
+    they are D1s' work); the forward's output is the plain one."""
+    args, kw, want = _ckpt(chunked, chunk, base)
+    got = tpb.blend_fwd_checkpoints_plain(*args[:4], **kw)
+    for name in ("t_start", "stop", "t_final", "chunk_map", "n_chunks"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert float(got.chunk_sum.abs().max()) == 0.0
+    if chunk == tpb.CHUNK:
+        fwd = dict(n_tiles=4 - base, tiles_x=2, n_channels=chunked["data"].shape[0] - 8)
+        out, ck = tpb.blend_instances_plain(*args[:4], checkpoints=True, **fwd)
+        assert torch.equal(out, tpb.blend_instances_plain(*args[:4], **fwd))
+        for a, b in zip(ck, got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("chunk", [4, 32])
+@pytest.mark.parametrize("base", [0, 2])
+def test_backward_from_forward_checkpoints_matches_interpret_pallas(chunked, chunk, base):
+    """D1s' and D2's plain versions fed by the forward's checkpoints: the
+    JAX kernel's rows (interpret mode) within the file's tolerance."""
+    args, kw, _ = _ckpt(chunked, chunk, base)
+    ck = tpb.blend_fwd_checkpoints_plain(*args[:4], **kw)
+    got = blend_tiles_bwd_from_ckpt_plain(*args, ck, **kw)
+    close(got.numpy(), chunked["want"][base])
+    assert float(np.abs(chunked["want"][base][:, :7]).max()) > 1e-3
+
+
+def test_blend_pallas_keeps_checkpoints_only_when_differentiated(sc, monkeypatch):
+    """The forward computes checkpoints only for a differentiated call, and
+    the backward reads them: no second walk of T (kernel D's whole plain
+    version is not called)."""
+    calls = {"fwd": 0, "from_ckpt": 0, "whole": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(tpb, "blend_fwd_checkpoints_plain",
+                        counted("fwd", tpb.blend_fwd_checkpoints_plain))
+    monkeypatch.setattr(tpbb, "blend_tiles_bwd_from_ckpt_plain",
+                        counted("from_ckpt", tpbb.blend_tiles_bwd_from_ckpt_plain))
+    monkeypatch.setattr(tpbb, "blend_tiles_bwd_plain",
+                        counted("whole", tpbb.blend_tiles_bwd_plain))
+    b = sc["bins"]
+    feats = t(sc["feats"]).requires_grad_(True)
+    args = (t(b.sorted_rank), t(b.order), t(b.rank), t(b.starts), t(sc["counts"]),
+            t(sc["means2d"]), t(sc["conics"]), t(sc["opac"]), feats, t(sc["depths"]),
+            torch.zeros(C))
+    with torch.no_grad():
+        tpb.blend_pallas(*args, width=W, height=H)
+    assert calls == {"fwd": 0, "from_ckpt": 0, "whole": 0}
+    out = tpb.blend_pallas(*args, width=W, height=H)
+    assert calls["fwd"] == 1
+    out.image.sum().backward()
+    assert calls == {"fwd": 1, "from_ckpt": 1, "whole": 0}
+    assert float(feats.grad.abs().max()) > 0

@@ -20,7 +20,10 @@ the checkpoints of D1 and D1s against their plain version by
 CKPT_RTOL, since the plain T is the exp of a fp32 cumsum of up to 1,024 log
 terms), D1s' chunk sums against their plain version on the same T
 checkpoints within CKPT_RTOL of the largest, D2's rows against their plain
-version on the same checkpoints, per component as kernel D.
+version on the same checkpoints, per component as kernel D. Kernel C's
+checkpoint mode (a differentiated forward) computes D1's serial product in
+D1's order, so its checkpoints are held to D1's bit for bit, to the plain
+ones as D1's are, and the backward of D1s and D2 on them as kernel D.
 """
 import numpy as np
 import pytest
@@ -70,10 +73,14 @@ def deform_inputs(N, seed=0):
     return abig, asrc, packed, sc
 
 
-def instance_inputs(device, w, h, n=6000, C=19, seed=8):
-    """A projected, binned cloud of n Gaussians -> (instance data, kwargs)."""
+def instance_inputs(device, w, h, n=6000, C=19, seed=8, cluster=0):
+    """A projected, binned cloud of n Gaussians -> (instance data, kwargs).
+    The last `cluster` of them sit in a tight clump at the centre, so that
+    its tile's list reaches the 1,024-instance cap."""
     rng = np.random.RandomState(seed)
-    means = torch.as_tensor((rng.randn(n, 3) * 0.4).astype(np.float32), device=device)
+    xyz = rng.randn(n, 3) * 0.4
+    xyz[n - cluster:] = rng.randn(cluster, 3) * 0.01
+    means = torch.as_tensor(xyz.astype(np.float32), device=device)
     scales = torch.as_tensor(np.exp(rng.randn(n, 3) * 0.3 - 2.6).astype(np.float32),
                              device=device)
     quats = torch.as_tensor(rng.randn(n, 4).astype(np.float32), device=device)
@@ -164,6 +171,62 @@ def test_knn_kernel_matches_plain(cuda, k, exclude):
     assert torch.equal(d_k, d_p)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("Q,R,mask,exclude", [
+    (1001, 997, False, False),    # neither a multiple of the block's 16 queries
+    (37, 2085, True, False),      # nor of the 32 slices; R spans three staged tiles
+    (2085, 2085, True, True),     # the self case of mean_knn_dist2, masked
+    (5, 3, False, True),          # fewer refs than slices
+])
+def test_knn_kernel_ragged_shapes(cuda, k, Q, R, mask, exclude):
+    rng = np.random.default_rng(Q + R + k)
+    r = torch.as_tensor(rng.normal(size=(R, 3)).astype(np.float32), device=cuda)
+    q = r[:Q] if exclude and Q <= R else torch.as_tensor(
+        rng.normal(size=(Q, 3)).astype(np.float32), device=cuda)
+    m = torch.as_tensor(rng.random(R) > 0.2, device=cuda) if mask else None
+    d_k, i_k = knn_small_refs_cuda(q, r, k, ref_mask=m, exclude_self=exclude)
+    d_p, i_p = knn_small_refs_plain(q, r, k, ref_mask=m, exclude_self=exclude)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("n_valid", [0, 1, 2])
+@pytest.mark.parametrize("exclude", [False, True])
+def test_knn_kernel_fewer_valid_refs_than_k(cuda, k, n_valid, exclude):
+    """With fewer than k refs below BIG (a mask keeping n_valid refs, the
+    self match excluded), the later slots are the plain version's: BIG and
+    the lowest index holding BIG after the earlier picks."""
+    rng = np.random.default_rng(10 * k + n_valid)
+    r = torch.as_tensor(rng.normal(size=(40, 3)).astype(np.float32), device=cuda)
+    keep = np.zeros(40, bool)
+    keep[rng.choice(40, n_valid, replace=False)] = True
+    m = torch.as_tensor(keep, device=cuda)
+    d_k, i_k = knn_small_refs_cuda(r[:23], r, k, ref_mask=m, exclude_self=exclude)
+    d_p, i_p = knn_small_refs_plain(r[:23], r, k, ref_mask=m, exclude_self=exclude)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_knn_kernel_ties_across_slices_go_to_the_lower_index(cuda, k):
+    """Each of 97 points is repeated at indices 97 apart (97 mod 32 = 1), so
+    the copies of a point lie in different slices and staged tiles; the
+    queries sit exactly on the points, so every query has exact ties, and
+    the lower index must win as in one scan."""
+    rng = np.random.default_rng(5)
+    pts = rng.normal(size=(97, 3)).astype(np.float32)
+    r = torch.as_tensor(np.tile(pts, (23, 1)), device=cuda)          # R = 2,231
+    q = torch.as_tensor(np.concatenate([pts, pts[::-1] + 1e-3]), device=cuda)
+    d_k, i_k = knn_small_refs_cuda(q, r, k)
+    d_p, i_p = knn_small_refs_plain(q, r, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+    assert bool((i_k[:97, 0] == torch.arange(97, device=cuda)).all())
+    if k > 1:   # the second copy, 97 further on, ties the first at distance 0
+        assert bool((i_k[:97, 1] == torch.arange(97, device=cuda) + 97).all())
+
+
 @pytest.mark.parametrize("N", [6912, 6890, 1])
 def test_deform_kernel_matches_plain(cuda, N):
     args = [torch.as_tensor(a, device=cuda) for a in deform_inputs(max(N, 2))]
@@ -198,6 +261,68 @@ def test_blend_kernel_matches_plain(cuda, w, h):
         assert float(torch.cat([err[:20], err[21:]]).max()) <= 1e-4
         assert float(err[20].max()) <= 1e-3
     assert float(want.max()) > 0.1
+
+
+@pytest.mark.parametrize("C", [1, 19, 32])
+@pytest.mark.parametrize("planar", [True, False])
+def test_blend_kernel_channels_layouts_and_tile_cap(cuda, C, planar):
+    """C = 1, 19, 32 in both layouts, at tile_base 0 and one tile row on,
+    with a tile at the 1,024-instance cap."""
+    inst, kw = instance_inputs(cuda, 256, 128, n=3000, C=C, cluster=1500)
+    assert int(inst.counts.max()) == 1024
+    kw = dict(kw, planar=planar)
+    for base in (0, kw["tiles_x"]):
+        got = pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, base, **kw)
+        want = pb.blend_instances_plain(inst.data, inst.starts, inst.counts, base, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().movedim(0 if planar else 1, 0).reshape(C + 3, -1)
+        assert float(torch.cat([err[:C + 1], err[C + 2:]]).max()) <= 1e-4
+        assert float(err[C + 1].max()) <= 1e-3
+    assert float(want.max()) > 0.1
+
+
+@pytest.mark.parametrize("w,h,cluster", [(512, 512, 0), (208, 144, 0), (256, 128, 1500)])
+def test_blend_checkpoint_mode_matches_d1_and_plain(cuda, w, h, cluster):
+    """Kernel C's checkpoint mode: the same output as without, checkpoints
+    equal to D1's bit for bit (the same serial product) and to the plain
+    ones as D1's are; at tile_base 0 and one tile row on."""
+    inst, kw = instance_inputs(cuda, w, h, cluster=cluster)
+    cot = cotangents(inst, kw["n_tiles"])
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"])
+    for base in (0, kw["tiles_x"]):
+        args = (inst.data, inst.starts, inst.counts, base)
+        out = pb.blend_instances_cuda(*args, **kw)
+        out_ck, ck = pb.blend_instances_cuda(*args, checkpoints=True, **kw)
+        ck_d1 = pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles)
+        want = pb.blend_fwd_checkpoints_plain(*args, **tiles)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_ck)
+        mism = pbb.checkpoint_mismatches(ck, ck_d1, inst.counts)
+        assert not any(mism.values()), mism
+        e = pbb.checkpoint_errors(ck._replace(chunk_sum=want.chunk_sum), want, inst.counts)
+        assert e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0, e
+        assert max(e["t_rel"], e["t_final_rel"]) <= CKPT_RTOL, e
+    assert int(want.n_chunks) > int((inst.counts > 0).sum())   # tiles of several chunks
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_backward_on_forward_checkpoints_matches_plain(cuda, w, h):
+    """The backward without D1: D1s and D2 on kernel C's checkpoints against
+    the plain kernel D."""
+    inst, kw = instance_inputs(cuda, w, h)
+    cot = cotangents(inst, kw["n_tiles"])
+    tiles = dict(n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"], n_channels=19)
+    for base in (0, kw["tiles_x"]):
+        args = (inst.data, inst.starts, inst.counts, base)
+        _, ck = pb.blend_instances_cuda(*args, checkpoints=True, **kw)
+        before = cuda_lib.LAUNCHES["blend_bwd_ckpt"]
+        got = pbb.blend_tiles_bwd_from_ckpt_cuda(*args, cot, ck, **tiles)
+        want = pbb.blend_tiles_bwd_plain(*args, cot, **tiles)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES["blend_bwd_ckpt"] == before
+        tol = 1e-4 * want.abs().max(dim=0).values + 1e-6
+        assert bool(((got - want).abs().max(dim=0).values <= tol).all())
+    assert float(want[:, :7].abs().max()) > 1e-3
 
 
 def cotangents(inst, n_tiles, seed=9):
@@ -317,3 +442,18 @@ def test_blend_pallas_grads_match_cpu_and_are_bit_stable(cuda):
         tol = 1e-4 * float(c.abs().max()) + 1e-6
         assert float((a.cpu() - c).abs().max()) <= tol
     assert float(want[0].abs().max()) > 0
+
+
+def test_differentiated_forward_writes_checkpoints_and_backward_skips_d1(cuda):
+    """A differentiated blend has kernel C write the checkpoints and its
+    backward runs D1s and D2 only; the same forward without grad writes
+    none."""
+    cuda_lib.reset_launches()
+    rasterize_grads(cuda)
+    n = dict(cuda_lib.LAUNCHES)
+    assert n["blend_fwd"] == n["blend_fwd_ckpt"] == n["blend_bwd"] == 1
+    assert n["blend_bwd_sums"] == n["blend_bwd_rows"] == 1 and n["blend_bwd_ckpt"] == 0
+    cuda_lib.reset_launches()
+    with torch.no_grad(), pytest.raises(RuntimeError, match="does not require grad"):
+        rasterize_grads(cuda)      # the forward runs, then there is no graph
+    assert cuda_lib.LAUNCHES["blend_fwd"] == 1 and cuda_lib.LAUNCHES["blend_fwd_ckpt"] == 0
