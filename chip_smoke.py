@@ -8,7 +8,9 @@ Phases, each of which must pass (any failure exits non-zero):
      source, in parallel) and its time, TF32 off;
   2. kernels A, B, C against their plain PyTorch versions on the card, on
      the inputs the serving render gives them, captured from real calls, with
-     kernel, plain and library times and each kernel's bound; kernel A also
+     kernel, plain and library times and each kernel's bound; each kernel's
+     time twice: CUDA events around back-to-back wrapper calls (host
+     included) and its own device time from torch.profiler; kernel A also
      at the 16,384 queries of the training loop after densify, with its warps
      per SM; kernel C's busy tiles and longest tile, and its checkpoint mode
      (a differentiated forward) against D1 bit for bit and against the plain
@@ -23,17 +25,23 @@ Phases, each of which must pass (any failure exits non-zero):
      through the deform branch, frames/s;
   5. branch-A training: kernel C at the inputs a training step's forward
      gives it (checkpoint mode, as in phase 2), and kernel D against its plain
-     version on the inputs its backward gives it (bench point and 208x144):
+     version on the inputs its backward gives it (bench point and 208x144),
+     and kernel B's backward on the deform call of the same step, bit for bit
+     against its plain version and within 1e-5 of autograd of the plain
+     forward:
      the step's D1s + D2 on kernel C's checkpoints, the standalone three
      launches, and each launch (D1 T checkpoints, D1s chunk sums, D2 rows)
      against its own plain version; one step on the card against the same step on the
      CPU (128^2, capacity 1,024, LPIPS on); the same step twice at the bench
      point, bit-equal; ms/step over 100 steps at the bench point (capacity
-     8,192, LPIPS on); a profile of 8 steps (launches per step, kernels C and
-     D's device time; no D1 launch); a 60-iteration train_loop with
+     8,192, LPIPS on); a profile of 8 steps (launches per step, kernels B's
+     backward, C and D's device time; no D1 launch; one kernel B backward per
+     step, with no plain-op storm under its autograd node); a 60-iteration
+     train_loop (one kernel B backward per iteration) with
      densify events at 20 and 40 and an opacity reset at 50; the trained
      views' PSNR / SSIM / LPIPS;
-  6. a `kernels` JSON line, the card line, and as the last line
+  6. each kernel's time lost on the main paths from its device time, a
+     `kernels` JSON line, the card line, and as the last line
      {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -62,6 +70,24 @@ GRAD_RTOL = 1e-3           # GPU vs CPU step: each gradient leaf within GRAD_RTO
 KERNEL_D_RTOL = 1e-4       # kernel D vs plain: each component within 1e-4 max|plain| + 1e-6
 CKPT_RTOL = 1e-4           # D1 vs plain: T, T_final relative, chunk sums over the largest
                            # (the plain T is exp of a fp32 cumsum of up to 1,024 log terms)
+DEFORM_BWD_RTOL = 1e-5     # kernel B's backward vs autograd of the plain forward: each
+                           # gradient within 1e-5 max + 1e-6 (another order of the same sums)
+# fp32 operations per Gaussian of kernel B, counted from the plain versions'
+# elementwise operations (the backward recomputes the chain; the scalars'
+# gradient adds its 93 shares and the 36 of the target-pose point and
+# translation, which only those shares read)
+DEFORM_FWD_OPS, DEFORM_BWD_OPS, DEFORM_SCALAR_OPS = 297, 669, 129
+# each kernel's own CUDA kernels, by name, for its device time
+KERNEL_KEYS = {
+    "knn": ("knn_kernel",),
+    "deform": ("deform_fwd_kernel",),
+    "deform_bwd": ("deform_bwd",),
+    "blend_fwd": ("blend_fwd_kernel",),
+    "blend_bwd": ("blend_bwd_sums_kernel", "blend_bwd_rows_kernel"),
+    "blend_bwd_ckpt": ("blend_bwd_ckpt_kernel",),
+    "blend_bwd_sums": ("blend_bwd_sums_kernel",),
+    "blend_bwd_rows": ("blend_bwd_rows_kernel",),
+}
 
 
 def require(cond, msg):
@@ -92,6 +118,61 @@ def cuda_ms(fn, reps=20, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, name, reps=20, warmup=2, per_call=1):
+    """Device milliseconds per fn() of kernel `name`'s own CUDA kernels
+    (KERNEL_KEYS; `per_call` kernels of distinct names per call): the sum,
+    over those names, of the median duration of the name's kernel events in
+    a torch.profiler trace of `reps` calls. The profiler has been seen to
+    drop most kernel events from some traces (the durations of the rest are
+    right), so a median is taken and a short trace is noted; a trace with
+    no event of some name is taken again, twice at most, then None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durations: dict = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.name for k in KERNEL_KEYS[name])):
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        found = sum(len(d) for d in durations.values())
+        if found != reps * per_call:
+            print(f"[profiler] {name}: {found} of {reps * per_call} kernel events in the trace",
+                  flush=True)
+        if len(durations) == per_call:
+            return sum(float(np.median(d)) for d in durations.values()) / 1e3
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def node_ops(prof, node):
+    """How often the autograd node `node` was evaluated under the profiler,
+    and the aten ops (name -> count) that ran inside those evaluations."""
+    counts: dict = {}
+
+    def walk(e):
+        for ch in e.cpu_children:
+            if ch.name.startswith("aten::"):
+                counts[ch.name] = counts.get(ch.name, 0) + 1
+            walk(ch)
+
+    evals = [e for e in prof.events()
+             if e.name.startswith("autograd::engine::evaluate_function") and e.name.endswith(node)]
+    for e in evals:
+        walk(e)
+    return len(evals), counts
 
 
 @contextlib.contextmanager
@@ -225,13 +306,17 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
     ms = cuda_ms(lambda: pb.blend_instances_cuda(*args, **kw))
     ms_ck = cuda_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw))
     ms_d1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles))
+    dms = device_ms(lambda: pb.blend_instances_cuda(*args, **kw), "blend_fwd")
+    dms_ck = device_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw),
+                       "blend_fwd")
     plain_ms = cuda_ms(lambda: pb.blend_instances_plain(*args, **kw), reps=3, warmup=1)
     n_busy = int((counts > 0).sum())
     n_chunks = int(ck.n_chunks)
     print(f"[kernel C blend_fwd] {label}: tiles {n_tiles} ({n_busy} with instances, longest "
           f"{int(counts.max())}), instances {int(counts.sum())}, C={C}, max abs err {err:.3e} "
-          f"(depth row {err_depth:.3e}), kernel {ms:.4f} ms, checkpoint mode {ms_ck:.4f} ms "
-          f"(D1 on the same inputs {ms_d1:.4f} ms), plain {plain_ms:.4f} ms", flush=True)
+          f"(depth row {err_depth:.3e}), kernel {ms:.4f} ms (device {fmt_ms(dms)}), checkpoint "
+          f"mode {ms_ck:.4f} ms (device {fmt_ms(dms_ck)}; D1 on the same inputs {ms_d1:.4f} ms), "
+          f"plain {plain_ms:.4f} ms", flush=True)
     # the work these inputs need: pairs evaluated before each pixel stops,
     # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
     # rows the kernel loads (x .. depth, features) of the instances some
@@ -255,8 +340,9 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
         report["blend_fwd"] = dict(
             name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
             replaces="mygauhuman_tpu/ops/pallas_blend.py:362",
-            max_abs_err=max(err, err_depth), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
+            max_abs_err=max(err, err_depth), ms=ms, device_ms=dms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dms_ck, b_ck[0]
 
 
 def check_kernel_d(label, call, C, report, pb, pbb, main):
@@ -308,6 +394,11 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
     ms1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, **kw))
     ms1s = cuda_ms(lambda: pbb.blend_bwd_sums_cuda(*args, ck, **kw))
     ms2 = cuda_ms(lambda: pbb.blend_bwd_rows_cuda(*args, ck, **kw))
+    dms = device_ms(lambda: pbb.blend_tiles_bwd_from_ckpt_cuda(*args, ck_c, **kw), "blend_bwd",
+                    per_call=2)
+    dms1 = device_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, **kw), "blend_bwd_ckpt")
+    dms1s = device_ms(lambda: pbb.blend_bwd_sums_cuda(*args, ck, **kw), "blend_bwd_sums")
+    dms2 = device_ms(lambda: pbb.blend_bwd_rows_cuda(*args, ck, **kw), "blend_bwd_rows")
     plain_ms = cuda_ms(lambda: pbb.blend_tiles_bwd_plain(*args, **kw), reps=2, warmup=1)
     # D1's plain version computes the sums too (blend_bwd_checkpoints_plain)
     plain1 = cuda_ms(lambda: pbb.blend_bwd_checkpoints_plain(*args, **kw), reps=2, warmup=1)
@@ -351,15 +442,17 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
     print(f"[kernel D blend_bwd] {label}: tiles {n_tiles} ({n_busy} with instances), "
           f"instances {int(counts.sum())} (longest tile {int(counts.max())}), C={C} (Cf={cf}), "
           f"the step's D1s + D2 on kernel C's checkpoints: max abs err {err:.3e} (worst "
-          f"component at {worst:.3f} of its tolerance), {ms:.4f} ms; standalone D1 + D1s + "
+          f"component at {worst:.3f} of its tolerance), {ms:.4f} ms (device {fmt_ms(dms)}); "
+          f"standalone D1 + D1s + "
           f"D2: max abs err {float(err_d_rows.max()):.3e}, {ms_d:.4f} ms; plain "
           f"{plain_ms:.4f} ms; work: {n_eval} pairs evaluated, "
           f"{n_incl} included, {n_read} instances read, {ops / 1e9:.3f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by})", flush=True)
-    print(f"[kernel D blend_bwd] {label}: D1 T checkpoints {ms1:.4f} ms (plain, with the "
-          f"sums, {plain1:.4f} ms; bound {b1[0]:.5f} ms, {b1[1]}; {n_busy} blocks), D1s chunk "
-          f"sums {ms1s:.4f} ms (plain {plain1s:.4f} ms, bound {b1s[0]:.5f} ms, {b1s[1]}; "
-          f"{n_chunks} working blocks), D2 rows {ms2:.4f} ms (plain "
+    print(f"[kernel D blend_bwd] {label}: D1 T checkpoints {ms1:.4f} ms (device "
+          f"{fmt_ms(dms1)}; plain, with the sums, {plain1:.4f} ms; bound {b1[0]:.5f} ms, {b1[1]}; "
+          f"{n_busy} blocks), D1s chunk sums {ms1s:.4f} ms (device {fmt_ms(dms1s)}; plain "
+          f"{plain1s:.4f} ms, bound {b1s[0]:.5f} ms, {b1s[1]}; {n_chunks} working blocks), D2 "
+          f"rows {ms2:.4f} ms (device {fmt_ms(dms2)}; plain "
           f"{plain2:.4f} ms, bound {b2[0]:.5f} ms, {b2[1]}; {n_chunks} working blocks of "
           f"{ck.t_start.shape[0]} launched); D1 vs plain: stop mismatches off near-ties "
           f"{e1['stop_mismatch']}, near-ties {e1['near_ties']}, T rel {e1['t_rel']:.3e}, "
@@ -374,20 +467,90 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
         # the step's kernel D: D1s + D2 on kernel C's checkpoints
         report["blend_bwd"] = dict(
             name="blend_bwd", route="cuda", source=src, replaces=tpu, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            device_ms=dms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         # D1's error: the largest relative error of T against the plain T
         report["blend_bwd_ckpt"] = dict(
             name="blend_bwd_ckpt", route="cuda", source=src, replaces=tpu,
-            max_abs_err=max(e1["t_rel"], e1["t_final_rel"]), ms=ms1, plain_ms=plain1,
-            bound_ms=b1[0], bound_by=b1[1], library_ms=None)
+            max_abs_err=max(e1["t_rel"], e1["t_final_rel"]), ms=ms1, device_ms=dms1,
+            plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1], library_ms=None)
         report["blend_bwd_sums"] = dict(
             name="blend_bwd_sums", route="cuda", source=src, replaces=tpu,
-            max_abs_err=sums_err, ms=ms1s, plain_ms=plain1s, bound_ms=b1s[0],
-            bound_by=b1s[1], library_ms=None)
+            max_abs_err=sums_err, ms=ms1s, device_ms=dms1s, plain_ms=plain1s,
+            bound_ms=b1s[0], bound_by=b1s[1], library_ms=None)
         report["blend_bwd_rows"] = dict(
             name="blend_bwd_rows", route="cuda", source=src, replaces=tpu,
-            max_abs_err=float(err2_rows.max()), ms=ms2, plain_ms=plain2, bound_ms=b2[0],
-            bound_by=b2[1], library_ms=None)
+            max_abs_err=float(err2_rows.max()), ms=ms2, device_ms=dms2, plain_ms=plain2,
+            bound_ms=b2[0], bound_by=b2[1], library_ms=None)
+
+
+def check_kernel_b_bwd(call, report):
+    """Kernel B's backward on one captured backward call of a training step:
+    bit for bit against its plain version (with the gradients the step asks
+    for, and with all four, the scalars' two-pass sum included), and within
+    DEFORM_BWD_RTOL of autograd of the plain forward; its times and bound."""
+    import torch
+
+    from mygauhuman_torch.ops import pallas_deform as pd
+
+    args, kw = call
+    args = [t.detach() for t in args]
+    needs = tuple(kw.get("needs", (True,) * 4))
+    names = ("abig", "asrc", "packed", "scalars")
+    N = args[0].shape[1]
+    want = pd.deform_rows_bwd_plain(*args)
+    got = pd.deform_rows_bwd_cuda(*args, needs=needs)
+    full = pd.deform_rows_bwd_cuda(*args)
+    again = pd.deform_rows_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for name, x, y, need in zip(names, got, want, needs):
+        require((x is None) != need, f"deform_bwd: d_{name} {'missing' if need else 'written'}")
+        require(not need or torch.equal(x, y), f"deform_bwd: d_{name} differs from the plain "
+                f"version in {0 if x is None else int((x != y).sum())} values")
+    for name, x, y, z in zip(names, full, want, again):
+        require(torch.equal(x, y), f"deform_bwd (all four): d_{name} differs from the plain "
+                f"version in {int((x != y).sum())} values")
+        require(torch.equal(x, z), f"deform_bwd: d_{name} differs between two runs")
+    inputs = [t.detach().clone().requires_grad_(True) for t in args[:4]]
+    ag = torch.autograd.grad(pd.deform_rows_plain(*inputs), inputs, args[4])
+    errs = []
+    for name, x, y in zip(names, full, ag):
+        err, scale = float((x - y).abs().max()), float(y.abs().max())
+        require(bool(torch.isfinite(x).all()) and err <= DEFORM_BWD_RTOL * scale + 1e-6,
+                f"deform_bwd vs autograd: d_{name} err {err} (max {scale})")
+        errs.append(err / (scale + 1e-30))
+
+    step = lambda: pd.deform_rows_bwd_cuda(*args, needs=needs)   # noqa: E731
+    ms = cuda_ms(step, reps=50)
+    dms = device_ms(step, "deform_bwd", reps=50, per_call=1 + needs[3])
+    plain_ms = cuda_ms(lambda: pd.deform_rows_bwd_plain(*args), reps=5, warmup=1)
+    fwd_ms = cuda_ms(lambda: pd.deform_rows_cuda(*args[:4]), reps=50)
+    fwd_dms = device_ms(lambda: pd.deform_rows_cuda(*args[:4]), "deform", reps=50)
+    # reads the input rows and the 21 cotangent rows, writes the gradient
+    # rows asked for (with the scalars: their [21, N / 32] partials and sum);
+    # asrc's translation rows reach only the scalars' shares
+    rows_out = 12 * needs[0] + 12 * needs[1] + 9 * needs[2]
+    nbytes = (30 + 3 * needs[3] + 21 + rows_out) * 4 * N + 32 * 4
+    ops = DEFORM_BWD_OPS * N
+    if needs[3]:
+        nbytes += 2 * 21 * 4 * -(-N // 32) + 32 * 4
+        ops += DEFORM_SCALAR_OPS * N
+    b_ms, b_by = bound(ops, nbytes)
+    print(f"[kernel B deform_bwd] training step: N={N}, gradients asked for "
+          f"{[n for n, need in zip(names, needs) if need]}; bit-equal to the plain version "
+          f"(asked, and all four), the same bits twice; vs autograd of the plain forward: "
+          + ", ".join(f"d_{n} {e:.3e}" for n, e in zip(names, errs))
+          + f" of the largest (tolerance {DEFORM_BWD_RTOL}); kernel {ms:.4f} ms (device "
+          f"{fmt_ms(dms)}), plain {plain_ms:.4f} ms; {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} MFLOP, bound {b_ms:.5f} ms "
+          f"({b_by}); the forward at this N {fwd_ms:.4f} ms (device {fmt_ms(fwd_dms)})",
+          flush=True)
+    # what the loop runs: the forward at the training N
+    report["deform"].update(loop_device_ms=fwd_dms, loop_bound_ms=bound(
+        DEFORM_FWD_OPS * N, (12 + 12 + 9 + 21) * 4 * N + 32 * 4)[0])
+    report["deform_bwd"] = dict(
+        name="deform_bwd", route="cuda", source="mygauhuman_torch/csrc/deform.cu",
+        replaces="mygauhuman_tpu/ops/pallas_deform.py:204",
+        max_abs_err=max(float((x - y).abs().max()) for x, y in zip(full, ag)), ms=ms,
+        device_ms=dms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def train_gpu_vs_cpu(dev):
@@ -486,12 +649,20 @@ def train_bench(scene, cfg, train, dev, report):
     # where a step's time goes
     from torch.profiler import ProfilerActivity, profile
 
+    cuda_lib.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(PROFILE_FRAMES):
             ts, m = step(ts, batches[i % 4], 0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_FRAMES
+    require(cuda_lib.LAUNCHES["deform_bwd"] == PROFILE_FRAMES,
+            f"{cuda_lib.LAUNCHES['deform_bwd']} kernel B backward passes in {PROFILE_FRAMES} steps")
+    # kernel B's backward node: the kernel, and no plain elementwise ops
+    n_evals, b_ops = node_ops(prof, "_DeformRowsBackward")
+    storm = sum(n for op, n in b_ops.items() if op in ("aten::mul", "aten::add", "aten::add_"))
+    require(n_evals == PROFILE_FRAMES and storm == 0,
+            f"kernel B's backward node: {n_evals} evaluations in {PROFILE_FRAMES} steps, ops {b_ops}")
     kernels_ = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(device_us(e) for e in kernels_) / PROFILE_FRAMES
@@ -505,12 +676,21 @@ def train_bench(scene, cfg, train, dev, report):
         c_us = sum(device_us(e) for e in kernels_ if "blend_fwd" in e.key) / PROFILE_FRAMES
         d1_steps = sum(e.count for e in kernels_ if "blend_bwd_ckpt" in e.key)
         require(d1_steps == 0, f"D1 was launched {d1_steps} times in the profiled steps")
+        b_bwd = [e for e in kernels_ if "deform_bwd" in e.key]
+        b_bwd_us = sum(device_us(e) for e in b_bwd) / PROFILE_FRAMES
+        b_fwd_us = sum(device_us(e) for e in kernels_ if "deform_fwd" in e.key) / PROFILE_FRAMES
+        # (the launch count is required above; the trace may drop events)
+        b_bwd_n = sum(e.count for e in b_bwd)
         print(f"[profile] train step under the profiler: {wall_us:.0f} us/step wall, "
               f"{busy_us:.0f} us/step device busy ({100 * busy_us / wall_us:.1f}%), "
               f"{launches_:.0f} kernel launches/step (no D1); backward (autograd engine) "
               f"{bwd_us:.0f} us/step of device time, the rest {busy_us - bwd_us:.0f} us; "
               f"kernel D (D1s + D2) {d_us:.1f} us/step ({100 * d_us / busy_us:.2f}% of device "
-              f"time); kernel C (checkpoint mode) {c_us:.1f} us/step")
+              f"time); kernel C (checkpoint mode) {c_us:.1f} us/step; kernel B forward "
+              f"{b_fwd_us:.2f} us/step, backward {b_bwd_us:.2f} us/step ({b_bwd_n} kernels in "
+              f"the trace of {PROFILE_FRAMES} steps; "
+              f"{sum(b_ops.values()) / PROFILE_FRAMES:.1f} aten ops per evaluation of its "
+              f"autograd node: {dict(sorted(b_ops.items()))})")
         for e in sorted(kernels_, key=device_us, reverse=True)[:10]:
             print(f"[profile]   {device_us(e) / PROFILE_FRAMES:8.1f} us/step "
                   f"{e.count / PROFILE_FRAMES:5.1f}x  {e.key[:90]}")
@@ -548,13 +728,16 @@ def train_bench(scene, cfg, train, dev, report):
     print(f"[train] loss per iteration {np.round(loss, 4).tolist()}")
     print(f"[train] PSNR per iteration {np.round(psnr, 3).tolist()}")
     # the loop's backward runs D1s and D2 on kernel C's checkpoints: no D1
-    for name in ("knn", "deform", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+    for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
                  "blend_bwd_sums", "blend_bwd_rows"):
         require(launches[name] > 0, f"kernel {name} was not launched in the train loop")
+    require(launches["deform_bwd"] == LOOP_ITERS,
+            f"{launches['deform_bwd']} kernel B backward passes in {LOOP_ITERS} iterations")
     require(launches["blend_bwd_ckpt"] == 0, "D1 was launched in the train loop")
     require(launches["blend_fwd_ckpt"] == launches["blend_bwd"],
             "a differentiated forward without its backward, or the reverse")
-    for name in ("blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows"):
+    for name in ("deform_bwd", "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums",
+                 "blend_bwd_rows"):
         report[name]["launches"] = launches[name]
     require(np.isfinite(loss[-1]), "the train loop ended with a non-finite loss")
     # learning is read on the last 10 iterations before the first event: each
@@ -574,6 +757,7 @@ def train_bench(scene, cfg, train, dev, report):
     print(f"[train] trained views after the loop (capacity {ts.gauss.capacity}, "
           f"{int(ts.gauss.num_alive)} alive): PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
           f"lpips_rand {res['lpips_rand']:.4f}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -586,6 +770,7 @@ def main() -> None:
     from mygauhuman_torch.data.synthetic import _masks, look_at_camera, make_synthetic_scene
     from mygauhuman_torch.models import gaussians as G
     from mygauhuman_torch.models.io import load_ply, save_ply
+    import mygauhuman_torch.ops.pallas_deform as pd
     from mygauhuman_torch.ops import cuda_lib
     from mygauhuman_torch.ops.pallas_deform import deform_rows_cuda, deform_rows_plain
     from mygauhuman_torch.ops.pallas_knn import (
@@ -676,12 +861,14 @@ def main() -> None:
                 f"{int((d_k != d_p).sum())} distances differ from the plain version")
         err = float((d_k - d_p).abs().max())
         ms = cuda_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl))
+        dms = device_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl), "knn")
         plain_ms = cuda_ms(lambda: knn_small_refs_plain(q, r, k, exclude_self=excl), reps=5)
         lib_ms = cuda_ms(lambda: torch.cdist(q, r).topk(k, dim=1, largest=False), reps=5)
         blocks = -(-q.shape[0] // KNN_QUERIES_PER_BLOCK)
         print(f"[kernel A knn] {label}: Q={q.shape[0]} R={r.shape[0]} k={k} "
               f"bit-equal to the plain version (max abs d2 err {err:.3e}), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms; "
+              f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, cdist+topk "
+              f"{lib_ms:.4f} ms; "
               f"{blocks} blocks, {blocks * KNN_WARPS_PER_BLOCK / n_sm:.1f} warps per SM "
               f"on {n_sm} SMs", flush=True)
         require(ms < lib_ms, f"KNN {label}: kernel {ms} ms not faster than cdist+topk")
@@ -690,8 +877,8 @@ def main() -> None:
             b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
             report["knn"] = dict(name="knn", route="cuda", source="mygauhuman_torch/csrc/knn.cu",
                                  replaces="mygauhuman_tpu/ops/pallas_knn.py:32",
-                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
+                                 max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
     # kernel B
     args_main, _ = seen["deform_rows"]
@@ -704,20 +891,26 @@ def main() -> None:
         want = deform_rows_plain(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        require(torch.isfinite(got).all() and err <= 1e-5 * float(want.abs().max()) + 1e-6,
-                f"deform {label}: max abs err {err}")
+        # -fmad=false and the plain version's operation order: bit-equal
+        require(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+                f"deform {label}: {int((got != want).sum())} values differ from the plain "
+                f"version (max abs err {err})")
         ms = cuda_ms(lambda: deform_rows_cuda(*args), reps=50)
+        dms = device_ms(lambda: deform_rows_cuda(*args), "deform", reps=50)
         plain_ms = cuda_ms(lambda: deform_rows_plain(*args), reps=10)
-        print(f"[kernel B deform] {label}: N={args[0].shape[1]} max abs err {err:.3e}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        threads = cuda_lib.library("deform").deform_threads()
+        blocks = -(-args[0].shape[1] // threads)
+        print(f"[kernel B deform] {label}: N={args[0].shape[1]} bit-equal to the plain version, "
+              f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms; {blocks} "
+              f"blocks of {threads} on {n_sm} SMs", flush=True)
         if label == "main path":
-            # ~310 fp32 ops and 216 B per Gaussian (csrc/deform.cu)
-            b_ms, b_by = bound(310.0 * n_main, (12 + 12 + 9 + 21) * 4 * n_main + 32 * 4)
+            # 216 B per Gaussian (33 floats in, 21 out)
+            b_ms, b_by = bound(DEFORM_FWD_OPS * n_main, (12 + 12 + 9 + 21) * 4 * n_main + 32 * 4)
             report["deform"] = dict(name="deform", route="cuda",
                                     source="mygauhuman_torch/csrc/deform.cu",
                                     replaces="mygauhuman_tpu/ops/pallas_deform.py:139",
-                                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=None)
+                                    max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # kernel C: planar at 512^2 (the main path), tile-major at 208x144
     for label, key, planar in ((f"serving {BENCH['width']}x{BENCH['height']} planar",
@@ -743,6 +936,8 @@ def main() -> None:
         require(launches[name] > 0, f"kernel {name} was not launched on the main path")
         report[name]["launches"] = launches[name]
     require(launches["blend_fwd_ckpt"] == 0, "the no-grad serving forward wrote checkpoints")
+    require(launches["deform_bwd"] == 0, "the no-grad serving path ran kernel B's backward")
+    serving_launches = launches
     for v, (d, r) in enumerate(zip(deformed, replayed)):
         for out in (d, r):
             for f in ("render", "render_depth", "render_alpha", "normal", "albedo"):
@@ -849,7 +1044,8 @@ def main() -> None:
     served_launches = dict(cuda_lib.LAUNCHES)
     for name in ("knn", "deform", "blend_fwd"):
         require(served_launches[name] > 0, f"served size: kernel {name} not launched")
-    require(served_launches["blend_fwd_ckpt"] == 0, "served size: checkpoints written")
+    require(served_launches["blend_fwd_ckpt"] == 0 and served_launches["deform_bwd"] == 0,
+            "served size: checkpoints written or kernel B's backward run")
     for v, out in enumerate(outs):
         cover = float((out.render_alpha > 0.01).float().mean())
         require(bool(torch.isfinite(out.render).all()) and cover > 0.01,
@@ -887,25 +1083,46 @@ def main() -> None:
     for label, batch in ((f"{BENCH['width']}x{BENCH['height']}", b0), ("208x144", narrow)):
         tseen: dict = {}
         with capture(pb, "blend_rows_raw", tseen), capture(pb, "blend_tiles_raw", tseen), \
-                capture(pbb, "blend_tiles_bwd_from_ckpt_raw", tseen):
+                capture(pbb, "blend_tiles_bwd_from_ckpt_raw", tseen), \
+                capture(pd, "deform_rows_bwd_cuda", tseen):
             train["step"].loss_and_grads(train["ts"], batch, 0)
         planar = "blend_rows_raw" in tseen
         (data, starts, counts, tile_base), kw = tseen["blend_rows_raw" if planar
                                                       else "blend_tiles_raw"]
         require(kw.get("checkpoints") is True, f"training {label}: no checkpoint mode")
-        check_kernel_c(f"training {label} {'planar' if planar else 'tile-major'}", data,
-                       starts, counts, tile_base, dict(kw, planar=planar), pb, pbb)
+        ck_dms, ck_bound = check_kernel_c(
+            f"training {label} {'planar' if planar else 'tile-major'}", data, starts, counts,
+            tile_base, dict(kw, planar=planar), pb, pbb)
+        if batch is b0:   # what the loop runs: kernel C in checkpoint mode at this capture
+            report["blend_fwd"].update(loop_device_ms=ck_dms, loop_bound_ms=ck_bound)
         check_kernel_d(label, tseen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"],
                        report, pb, pbb, main=batch is b0)
+        if batch is b0:
+            check_kernel_b_bwd(tseen["deform_rows_bwd_cuda"], report)
     train_gpu_vs_cpu(dev)
-    train_bench(scene, cfg, train, dev, report)
+    loop_launches = train_bench(scene, cfg, train, dev, report)
 
     # ---- phase 6: results --------------------------------------------------
+    # time lost on the main paths, launches x (device ms - bound): the 4 + 4
+    # serving frames of phase 3 and the 60-iteration loop
+    # (kernels B and C: the loop at the training step's capture)
+    lost = []
+    for name, e in report.items():
+        loop_ms, loop_bound = e.get("loop_device_ms", e["device_ms"]), e.get("loop_bound_ms",
+                                                                              e["bound_ms"])
+        if e["device_ms"] is None or loop_ms is None:
+            lost.append(f"{name} not measured")
+            continue
+        lost.append(f"{name} {serving_launches[name] * (e['device_ms'] - e['bound_ms']):.4f} / "
+                    f"{loop_launches[name] * (loop_ms - loop_bound):.4f} (launches "
+                    f"{serving_launches[name]} / {loop_launches[name]})")
+    print("[lost] ms lost on the main paths from device time, serving / loop: "
+          + "; ".join(lost), flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: report[n][k] for k in keys}
-               for n in ("knn", "deform", "blend_fwd", "blend_bwd", "blend_bwd_ckpt",
-                         "blend_bwd_sums", "blend_bwd_rows")]
+               for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_bwd",
+                         "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
     print(json.dumps({"kernels": kernels}))
     print(card_line())   # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

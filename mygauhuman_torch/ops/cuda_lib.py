@@ -13,6 +13,8 @@ wrappers pass it to `check()`, which raises on anything but 0.
 `LAUNCHES` counts kernel launches per kernel name. A wrapper adds one right
 after it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
+Kernel B counts its forward as `deform` and each backward pass as
+`deform_bwd` (one launch, two when the scalars' gradient is asked for).
 Kernel C counts every launch as `blend_fwd` and its checkpoint-mode
 launches (a differentiated forward) also as `blend_fwd_ckpt`. Kernel D is
 three launches, each with its own count (`blend_bwd_ckpt`, `blend_bwd_sums`,
@@ -38,14 +40,14 @@ SOURCES = {
     # -fmad=false: the distance sum must round exactly as the plain version
     # does, or near-ties pick a different neighbour
     "knn": ("knn.cu", ["-fmad=false"]),
-    # -fmad=false: bit-for-bit the plain version's op order (launch-bound,
-    # so contraction buys nothing)
+    # -fmad=false: bit-for-bit the plain versions' op order, forward and
+    # backward (launch-bound, so contraction buys nothing)
     "deform": ("deform.cu", ["-fmad=false"]),
     "blend_fwd": ("blend_fwd.cu", []),
     "blend_bwd": ("blend_bwd.cu", []),
 }
 
-LAUNCHES = {name: 0 for name in (*SOURCES, "blend_fwd_ckpt", "blend_bwd_ckpt",
+LAUNCHES = {name: 0 for name in (*SOURCES, "deform_bwd", "blend_fwd_ckpt", "blend_bwd_ckpt",
                                   "blend_bwd_sums", "blend_bwd_rows")}
 
 _PTR = ctypes.c_void_p
@@ -54,7 +56,10 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "knn": {"knn_small_refs": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                                _PTR, _PTR, _PTR]},
-    "deform": {"deform_rows": [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR]},
+    "deform": {"deform_threads": [],
+               "deform_rows": [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR],
+               "deform_rows_bwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR,
+                                   _PTR, _PTR, _PTR]},
     "blend_fwd": {"blend_fwd": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
                                 _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]},

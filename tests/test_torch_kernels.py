@@ -7,7 +7,10 @@ without JAX run
 (`--noconftest` because tests/conftest.py imports JAX). The kernel tests
 skip without a CUDA card. Tolerances: kernels A and B are built with
 -fmad=false and written op for op as their plain versions, so they must be
-bit-equal; kernel C multiplies T per instance where the plain version sums
+bit-equal (B's backward too, against `deform_rows_bwd_plain`, whose scalars'
+gradient sums in the kernel's fixed order; and to autograd of the plain
+forward within 1e-5 of each gradient's largest value + 1e-6, the same sums in
+another order); kernel C multiplies T per instance where the plain version sums
 log(1 - alpha), and sums colours sequentially where it uses a matmul, so it
 is held to 1e-4 abs (depth row 1e-3: depths are ~3). Kernel D divides T
 back where its plain version (autograd of kernel C's) differentiates the
@@ -34,7 +37,13 @@ from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops import pallas_blend as pb
 from mygauhuman_torch.ops import pallas_blend_bwd as pbb
 from mygauhuman_torch.ops.binning import bin_gaussians
-from mygauhuman_torch.ops.pallas_deform import deform_rows, deform_rows_cuda, deform_rows_plain
+from mygauhuman_torch.ops.pallas_deform import (
+    deform_rows,
+    deform_rows_bwd_cuda,
+    deform_rows_bwd_plain,
+    deform_rows_cuda,
+    deform_rows_plain,
+)
 from mygauhuman_torch.ops.pallas_knn import (
     knn_small_refs,
     knn_small_refs_cuda,
@@ -56,7 +65,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def deform_inputs(N, seed=0):
+def deform_inputs(N, seed=0, singular=True):
     rng = np.random.RandomState(seed)
     eye = np.zeros((12, 1), np.float32)
     eye[[0, 5, 10]] = 1.0
@@ -68,9 +77,24 @@ def deform_inputs(N, seed=0):
     sc[0, 0:9] = rg.reshape(-1)
     sc[0, 9:18] = np.linalg.inv(rg).reshape(-1)
     sc[0, 18:21] = rng.randn(3)
-    abig[:, 0] = 0.0   # a singular blend goes through the det guard
-    abig[0, 0] = 1.0
+    if singular:   # a singular blend goes through the det guard
+        abig[:, 0] = 0.0
+        abig[0, 0] = 1.0
     return abig, asrc, packed, sc
+
+
+def deform_bwd_inputs(device, N, seed=0, guarded=True):
+    """(abig, asrc, packed, scalars, g) on `device`: deform_inputs plus a
+    random cotangent. With `guarded`, columns 0-2 (where N allows) go through
+    the det guard: column 0 singular, 1 and 2 at det = +-5e-9, so that 1 / det
+    reaches their gradients."""
+    abig, asrc, packed, sc = deform_inputs(max(N, 3), seed, singular=guarded)
+    for col, s in ((1, 1.0), (2, -1.0)) if guarded else ():
+        abig[[0, 1, 2, 4, 5, 6, 8, 9, 10], col] = 0.0
+        abig[[0, 5, 10], col] = (1.0, s, 5e-9)
+    g = np.random.RandomState(seed + 1).randn(21, max(N, 3)).astype(np.float32)
+    return [torch.as_tensor(np.ascontiguousarray(a[:, :N] if a.shape[0] != 1 else a),
+                            device=device) for a in (abig, asrc, packed, sc, g)]
 
 
 def instance_inputs(device, w, h, n=6000, C=19, seed=8, cluster=0):
@@ -107,6 +131,8 @@ def test_cuda_entries_refuse_cpu_tensors():
         knn_small_refs_cuda(q, q, 1)
     with pytest.raises(ValueError, match="CUDA"):
         deform_rows_cuda(*(torch.as_tensor(a) for a in deform_inputs(8)))
+    with pytest.raises(ValueError, match="CUDA"):
+        deform_rows_bwd_cuda(*deform_bwd_inputs("cpu", 8))
     inst, kw = instance_inputs("cpu", 32, 32, n=50, C=4)
     with pytest.raises(ValueError, match="CUDA"):
         pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, 0, **kw)
@@ -238,15 +264,54 @@ def test_deform_kernel_matches_plain(cuda, N):
     assert torch.equal(got, want)
 
 
-def test_deform_kernel_backward_is_plain_autograd(cuda):
+def test_deform_kernel_backward_matches_plain_autograd(cuda):
+    """The backward kernel against autograd of the plain forward: each
+    gradient within 1e-5 of its largest value + 1e-6."""
     args = deform_inputs(1000, seed=2)
     args[0][:, 0] = args[0][:, 1]
-    a = [torch.as_tensor(x, device=cuda).requires_grad_(i < 3) for i, x in enumerate(args)]
-    b = [torch.as_tensor(x, device=cuda).requires_grad_(i < 3) for i, x in enumerate(args)]
+    a = [torch.as_tensor(x, device=cuda).requires_grad_(True) for x in args]
+    b = [torch.as_tensor(x, device=cuda).requires_grad_(True) for x in args]
     (deform_rows(*a) ** 2).sum().backward()
     (deform_rows_plain(*b) ** 2).sum().backward()
-    for x, y in zip(a[:3], b[:3]):
-        torch.testing.assert_close(x.grad, y.grad, rtol=1e-6, atol=1e-6)
+    for x, y in zip(a, b):
+        err = float((x.grad - y.grad).abs().max())
+        assert err <= 1e-5 * float(y.grad.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("N", [6912, 6890, 1])
+def test_deform_bwd_kernel_matches_plain(cuda, N):
+    """All four gradients bit-equal to the plain backward, guarded columns
+    included, and the same bits on a second run."""
+    args = deform_bwd_inputs(cuda, N)
+    got = deform_rows_bwd_cuda(*args)
+    again = deform_rows_bwd_cuda(*args)
+    want = deform_rows_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, want, again):
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert not bool(got[3][0, 21:].any())
+    if N > 2:   # the guard's 1 / det reached the guarded columns
+        assert float(got[0][:, 1:3].abs().max()) > 1e6
+
+
+@pytest.mark.parametrize("needs", [tuple(bool(m >> i & 1) for i in range(4))
+                                   for m in range(1, 16)])
+def test_deform_bwd_kernel_gradients_asked_for(cuda, needs):
+    """Through autograd, each subset of inputs that need a gradient: one
+    backward launch, the asked-for gradients bit-equal to the plain
+    backward's, and none for the others."""
+    args = deform_bwd_inputs(cuda, 6890, seed=3)
+    want = deform_rows_bwd_plain(*args)
+    t = [a.clone().requires_grad_(need) for a, need in zip(args[:4], needs)]
+    out = deform_rows(*t)
+    cuda_lib.reset_launches()
+    out.backward(args[4])
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["deform_bwd"] == 1 and cuda_lib.LAUNCHES["deform"] == 0
+    for x, y, need in zip(t, want, needs):
+        assert (x.grad is not None) == need
+        assert not need or torch.equal(x.grad, y)
 
 
 @pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
