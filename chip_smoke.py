@@ -40,8 +40,24 @@ Phases, each of which must pass (any failure exits non-zero):
      train_loop (one kernel B backward per iteration) with
      densify events at 20 and 40 and an opacity reset at 50; the trained
      views' PSNR / SSIM / LPIPS;
-  6. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line, the card line, and as the last line
+  6. the entry points a user runs, under build/cli_run/: `cli.train` at full
+     width and the full branch-A budget (512^2, 6,890 Gaussians, 4 views,
+     1,200 iterations, densify every 100 from 400, eval at 1,200, saves at
+     600 and 1,200): wall time, ms per iteration, test PSNR, Gaussians and
+     capacity, densify counters, each kernel's launches in the run (A, B, B's
+     backward, C in checkpoint mode, D1s and D2 each launched, D1 never);
+     the saved snapshot loaded back bit-equal to the live state, and a resume
+     from it (--start_checkpoint) that starts at iteration 1,201; `cli.render`
+     on the run through the deform branch and the replay cache (fps_device,
+     fps_wall, PSNR / SSIM / LPIPS; the cached rows bit-equal to the eval's
+     deform transforms and the replay images bit-equal to a replay of them,
+     the difference to the deform render printed); `cli.metrics` on the
+     rendered PNGs
+     against the scene's ground truth as PNGs, its PSNR within 1e-4 of the
+     same metric on those 8-bit images in memory;
+  7. each kernel's time lost on the main paths from its device time, a
+     `kernels` JSON line (`launches`: the cli.train run's; the other paths'
+     in `launches_by_path`), the card line, and as the last line
      {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -51,9 +67,11 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -77,6 +95,10 @@ DEFORM_BWD_RTOL = 1e-5     # kernel B's backward vs autograd of the plain forwar
 # gradient adds its 93 shares and the 36 of the target-pose point and
 # translation, which only those shares read)
 DEFORM_FWD_OPS, DEFORM_BWD_OPS, DEFORM_SCALAR_OPS = 297, 669, 129
+CLI_DIR = Path(__file__).resolve().parent / "build" / "cli_run"
+CLI_ITERS = 1200           # the branch-A budget (train_zju_mocap_refine.sh:4)
+CLI_SCENE = dict(size=512, verts=6890, views=4)     # the bench point's widths
+METRICS_ATOL = 1e-4        # cli.metrics vs the same metric in memory (PSNR, dB)
 # each kernel's own CUDA kernels, by name, for its device time
 KERNEL_KEYS = {
     "knn": ("knn_kernel",),
@@ -598,7 +620,7 @@ def train_gpu_vs_cpu(dev):
           f"CPU step {cpu_s:.1f} s", flush=True)
 
 
-def train_bench(scene, cfg, train, dev, report):
+def train_bench(scene, cfg, train, dev):
     """Determinism, ms/step, a profile and the 60-iteration loop at the bench point."""
     import torch
 
@@ -736,9 +758,6 @@ def train_bench(scene, cfg, train, dev, report):
     require(launches["blend_bwd_ckpt"] == 0, "D1 was launched in the train loop")
     require(launches["blend_fwd_ckpt"] == launches["blend_bwd"],
             "a differentiated forward without its backward, or the reverse")
-    for name in ("deform_bwd", "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums",
-                 "blend_bwd_rows"):
-        report[name]["launches"] = launches[name]
     require(np.isfinite(loss[-1]), "the train loop ended with a non-finite loss")
     # learning is read on the last 10 iterations before the first event: each
     # densify event replaces Gaussians (PSNR dips) and the opacity reset at
@@ -758,6 +777,197 @@ def train_bench(scene, cfg, train, dev, report):
           f"{int(ts.gauss.num_alive)} alive): PSNR {res['psnr']:.3f}, SSIM {res['ssim']:.4f}, "
           f"lpips_rand {res['lpips_rand']:.4f}", flush=True)
     return launches
+
+
+def tree_leaves(tree) -> list:
+    """Every leaf of a tree of NamedTuples, dicts, lists and tuples."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    if isinstance(tree, dict):
+        return [leaf for item in tree.values() for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def cli_phase(dev):
+    """The entry points: cli.train's 1,200 iterations, the snapshot reloaded
+    and resumed, cli.render on both branches, cli.metrics. Returns the
+    launches of each run."""
+    import torch
+
+    from mygauhuman_torch.cli import metrics as cli_metrics
+    from mygauhuman_torch.cli import render as cli_render
+    from mygauhuman_torch.cli import train as cli_train
+    from mygauhuman_torch.eval.metrics import evaluate_images
+    from mygauhuman_torch.models.gaussians import compact_state
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.render import render_frame
+    from mygauhuman_torch.train.checkpoint import load_checkpoint, load_eval_cache
+    from mygauhuman_torch.utils.image_io import write_png
+
+    synth = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
+             str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"])]
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    out = CLI_DIR / "train"
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    res = cli_train.main(synth + [
+        "--iterations", str(CLI_ITERS),
+        "--test_iterations", str(CLI_ITERS), "--save_iterations", "600", str(CLI_ITERS),
+        "--skip_galleries", "--model_path", str(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = dict(cuda_lib.LAUNCHES)
+    phases = res["phases"]
+    side_s = sum(v["total_s"] for v in phases.values())
+    print(f"[cli] train: {CLI_ITERS} iterations in {res['elapsed_s']:.3f} s "
+          f"({1e3 * res['elapsed_s'] / CLI_ITERS:.3f} ms/iteration; without the eval and "
+          f"saves {1e3 * (res['elapsed_s'] - side_s) / CLI_ITERS:.3f} ms/iteration); "
+          f"{wall:.3f} s wall for the whole command (scene, set-up); phases {phases}",
+          flush=True)
+    print(f"[cli] train: test PSNR {res['test_psnr']:.4f}, final loss "
+          f"{res['final_loss']:.6f}, {res['n_gaussians']} Gaussians alive, capacity "
+          f"{res['capacity']}, iterations {res['first_iteration']}-{res['last_iteration']}",
+          flush=True)
+    for e in res["densify"]:
+        print(f"[cli] densify event: {e}")
+    print(f"[cli] train: launches {train_launches}", flush=True)
+    require(res["first_iteration"] == 1 and res["last_iteration"] == CLI_ITERS,
+            "cli.train did not run the whole budget")
+    require(np.isfinite(res["final_loss"]) and res["test_psnr"] > 0,
+            "cli.train: non-finite loss or no test PSNR")
+    require(len(res["densify"]) == 9, f"{len(res['densify'])} densify events, expected 9 "
+            "(every 100 iterations from 400 to 1,200)")
+    for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+                 "blend_bwd_sums", "blend_bwd_rows"):
+        require(train_launches[name] > 0, f"cli.train: kernel {name} was not launched")
+    require(train_launches["deform_bwd"] == CLI_ITERS,
+            f"{train_launches['deform_bwd']} kernel B backward passes in {CLI_ITERS} iterations")
+    require(train_launches["blend_bwd_ckpt"] == 0, "cli.train launched D1")
+    require(train_launches["blend_fwd_ckpt"] == train_launches["blend_bwd"],
+            "cli.train: a differentiated forward without its backward, or the reverse")
+
+    # the snapshot at 1,200 against the live state, bit for bit
+    live = res["state"]
+    back = load_checkpoint(str(out), CLI_ITERS, live)
+    pairs = list(zip(tree_leaves(back), tree_leaves(live)))
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in pairs)
+    print(f"[cli] chkpnt{CLI_ITERS} loaded back: {len(pairs)} leaves, bit-equal {same}",
+          flush=True)
+    require(same, "the checkpoint differs from the live state")
+    resumed = cli_train.main(synth + [
+        "--iterations", str(CLI_ITERS + 10), "--skip_galleries",
+        "--model_path", str(CLI_DIR / "resume"), "--device", "cuda",
+        "--start_checkpoint", str(out / f"chkpnt{CLI_ITERS}")])
+    print(f"[cli] resume: iterations {resumed['first_iteration']}-"
+          f"{resumed['last_iteration']}, final loss {resumed['final_loss']:.6f}", flush=True)
+    require(resumed["first_iteration"] == CLI_ITERS + 1
+            and resumed["last_iteration"] == CLI_ITERS + 10
+            and np.isfinite(resumed["final_loss"]), "the resume did not continue the run")
+
+    # the scene cli.render builds (its ground truth renders run the deform
+    # chain: set-up, not the render path)
+    cuda_lib.reset_launches()
+    scene = cli_train.synthetic_scene(CLI_SCENE["views"], CLI_SCENE["size"],
+                                      CLI_SCENE["verts"], dev)
+    torch.cuda.synchronize()
+    setup = dict(cuda_lib.LAUNCHES)
+
+    # cli.render: the deform branch, then the replay cache (the branch the
+    # reference's 189 FPS measures; its PNGs stay in renders_1200/)
+    base = ["--model_path", str(out), "--iteration", str(CLI_ITERS)] + synth + [
+        "--device", "cuda"]
+    renders, render_launches = {}, {}
+    for branch, extra in (("deform", []), ("replay", ["--use_replay_cache"])):
+        cuda_lib.reset_launches()
+        m = cli_render.main(base + extra)
+        torch.cuda.synchronize()
+        render_launches[branch] = dict(cuda_lib.LAUNCHES)
+        renders[branch] = m
+        print(f"[cli] render {branch}: fps_device {m['fps_device']:.2f} (CUDA events "
+              f"{m.get('ms_per_frame_events')} ms/frame), fps_wall {m['fps_wall']:.2f}, "
+              f"{res['n_gaussians']} Gaussians, "
+              f"PSNR {m['psnr']:.4f}, SSIM {m['ssim']:.4f}, lpips_rand {m['lpips_rand']:.4f}; "
+              f"launches {render_launches[branch]}", flush=True)
+        for name in ("knn", "deform", "blend_fwd") if branch == "deform" else ("blend_fwd",):
+            require(render_launches[branch][name] > 0,
+                    f"cli.render {branch}: kernel {name} was not launched")
+        require(render_launches[branch]["blend_fwd_ckpt"] == 0
+                and render_launches[branch]["deform_bwd"] == 0,
+                f"cli.render {branch}: checkpoints written or kernel B's backward run")
+    require(all(render_launches["replay"][k] == setup[k] for k in ("knn", "deform")),
+            f"cli.render --use_replay_cache ran the deform chain beyond its scene's set-up "
+            f"{setup}")
+    # the replay cache end to end: the cached rows are, bit for bit, the
+    # transforms of the eval's deform render (the trained state at its own
+    # capacity, with the trained pose-refiner and LBS-offset MLPs), and
+    # cli.render's replay images are, bit for bit, a replay render of the
+    # compacted state with those rows. Replay against deform on one state is
+    # phase 3's check (<= 1e-3 at the bench point); on the trained model the
+    # two compute positions by different float expressions (kernel B's
+    # chain, transforms @ x + translation), so rounding can flip a depth
+    # order or a tile edge; the difference is printed. cli.render's deform
+    # branch runs without the MLPs (as the JAX CLI) and differs by them.
+    cache = load_eval_cache(str(out / f"smpl_rot_{CLI_ITERS}.npz"))
+    state = compact_state(back.gauss)
+    alive = torch.nonzero(back.gauss.alive).reshape(-1)
+    n = alive.numel()
+    cfg = scene.raster_config._replace(instance_capacity=4 * state.capacity)
+    kw = dict(bg=torch.zeros(3, device=dev), active_sh_degree=3, config=cfg)
+    mlps = {"pose_refiner": back.pose_refiner, "lbs_offset": back.lbs_offset}
+    cache_exact = replay_exact = True
+    worst = mlp_effect = 0.0
+    n_off = 0
+    with torch.no_grad():
+        for v, b in enumerate(scene.batches):
+            deform = render_frame(back.gauss, b.camera, b.frame, scene.smpl_model,
+                                  mlp_params=mlps, **kw)
+            rows = {k: getattr(deform, k)[alive] for k in ("transforms", "translation")}
+            cache_exact &= all(torch.equal(rows[k], torch.as_tensor(cache[str(v)][k],
+                                                                    device=dev))
+                               for k in rows)
+            padded = {k: torch.cat([r, r.new_zeros((state.capacity - n,) + r.shape[1:])])
+                      for k, r in rows.items()}
+            replay = render_frame(state, b.camera, b.frame, scene.smpl_model, **padded,
+                                  **kw).render
+            got = renders["replay"]["renders"][v]
+            replay_exact &= torch.equal(replay, got)
+            d = (got - deform.render).abs()
+            worst = max(worst, float(d.max()))
+            n_off += int((d.amax(dim=-1) > RENDER_ATOL).sum())
+            mlp_effect = max(mlp_effect, float((got - renders["deform"]["renders"][v])
+                                               .abs().max()))
+    px = len(scene.batches) * CLI_SCENE["size"] ** 2
+    print(f"[cli] render: cached rows bit-equal to the eval's deform transforms {cache_exact}; "
+          f"cli.render's replay images bit-equal to a replay of them {replay_exact}; replay "
+          f"vs that deform render max abs {worst:.3e}, {n_off} of {px} pixels beyond "
+          f"{RENDER_ATOL}; replay vs cli.render's deform branch (no MLPs) {mlp_effect:.3e}",
+          flush=True)
+    require(cache_exact and replay_exact, "the replay cache does not reproduce the eval's "
+            "deform transforms, or cli.render does not replay them")
+
+    # cli.metrics on the replay PNGs against the ground truth as PNGs
+    gt_dir = CLI_DIR / "gt"
+    gt_dir.mkdir(parents=True)
+    q = lambda x: (np.clip(x.cpu().numpy(), 0, 1) * 255).astype(np.uint8)  # noqa: E731
+    for v, b in enumerate(scene.batches):
+        write_png(str(gt_dir / f"{v:05d}.png"), q(b.gt_image))
+    got = cli_metrics.main(["-r", str(out / f"renders_{CLI_ITERS}"), "-g", str(gt_dir),
+                            "-o", str(CLI_DIR / "metrics.json"), "--device", "cuda"])
+    as8 = lambda x: torch.as_tensor(q(x).astype(np.float32) / 255.0, device=dev)  # noqa: E731
+    mem = evaluate_images([as8(r) for r in renders["replay"]["renders"]],
+                          [as8(b.gt_image) for b in scene.batches])
+    with open(out / f"renders_{CLI_ITERS}" / "results.json") as f:
+        res_json = json.load(f)
+    print(f"[cli] metrics: PSNR {got['psnr']:.6f} from the PNGs, {mem['psnr']:.6f} on the "
+          f"same 8-bit images in memory (tolerance {METRICS_ATOL}); results.json (float "
+          f"renders vs float ground truth) {res_json['psnr']:.6f}, 8-bit quantisation moves "
+          f"it {got['psnr'] - res_json['psnr']:+.6f} dB; SSIM {got['ssim']:.6f}", flush=True)
+    require(abs(got["psnr"] - mem["psnr"]) <= METRICS_ATOL
+            and abs(got["ssim"] - mem["ssim"]) <= METRICS_ATOL,
+            "cli.metrics disagrees with the metrics of its images")
+    return {"cli_train": train_launches, "cli_render_deform": render_launches["deform"],
+            "cli_render_replay": render_launches["replay"]}
 
 
 def main() -> None:
@@ -934,7 +1144,6 @@ def main() -> None:
     print(f"[bench] launches on the main path (4 deform + 4 replay frames): {launches}")
     for name in ("knn", "deform", "blend_fwd"):
         require(launches[name] > 0, f"kernel {name} was not launched on the main path")
-        report[name]["launches"] = launches[name]
     require(launches["blend_fwd_ckpt"] == 0, "the no-grad serving forward wrote checkpoints")
     require(launches["deform_bwd"] == 0, "the no-grad serving path ran kernel B's backward")
     serving_launches = launches
@@ -1100,9 +1309,14 @@ def main() -> None:
         if batch is b0:
             check_kernel_b_bwd(tseen["deform_rows_bwd_cuda"], report)
     train_gpu_vs_cpu(dev)
-    loop_launches = train_bench(scene, cfg, train, dev, report)
+    loop_launches = train_bench(scene, cfg, train, dev)
 
-    # ---- phase 6: results --------------------------------------------------
+    # ---- phase 6: the entry points -------------------------------------------
+    t0 = time.perf_counter()
+    cli_launches = cli_phase(dev)
+    print(f"[cli] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 7: results --------------------------------------------------
     # time lost on the main paths, launches x (device ms - bound): the 4 + 4
     # serving frames of phase 3 and the 60-iteration loop
     # (kernels B and C: the loop at the training step's capture)
@@ -1118,9 +1332,13 @@ def main() -> None:
                     f"{serving_launches[name]} / {loop_launches[name]})")
     print("[lost] ms lost on the main paths from device time, serving / loop: "
           + "; ".join(lost), flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    # `launches`: this slice's main path, cli.train's 1,200 iterations; the
+    # other paths' counts beside it
+    paths = {"serving": serving_launches, "loop": loop_launches, **cli_launches}
+    keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: report[n][k] for k in keys}
+    kernels = [dict({k: report[n][k] for k in keys}, launches=cli_launches["cli_train"][n],
+                    launches_by_path={p: c[n] for p, c in paths.items()})
                for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_bwd",
                          "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
     print(json.dumps({"kernels": kernels}))

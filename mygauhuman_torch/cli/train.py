@@ -1,0 +1,425 @@
+"""Training CLI — the reference `train.py` driver on the PyTorch port
+(port of cli/train.py, the branch-A path).
+
+Usage:
+  python -m mygauhuman_torch.cli.train --source_path data/zju_mocap_refine/my_377 \\
+      --exp_name zju_377 --iterations 1200 --motion_offset_flag --smpl_type smpl
+  python -m mygauhuman_torch.cli.train --synthetic       # no-dataset demo run
+  ... --device cpu                                      # the plain PyTorch path
+
+Flow parity (train.py:128-434): scene load -> Gaussian init from the SMPL
+cloud -> loss-branch-A optimization with densify/prune/opacity-reset
+schedules and SH-degree ramp -> periodic eval (L1/PSNR/SSIM/LPIPS, render
+galleries, the per-pose replay cache) -> checkpoint + PLY export. The
+output directory holds what the JAX package's CLI writes (`cfg_args.json`,
+`metrics.jsonl`, `point_cloud_<it>.ply`, `smpl_rot_<it>.npz`,
+`eval_<it>/`), with `chkpnt<it>/` in the port's torch.save format.
+
+The parser is the reference's, plus `--device` (default cuda: without a
+card it raises; nothing falls back to the CPU). Features not ported yet
+raise NotImplementedError naming their ROADMAP Queue 1 item: the PBR phase
+(`--pbr_iteration` below `--iterations`, item 3), `--gui`, SMPL-X bodies
+and `.smc` sources (item 4), `--multichip` (item 5). Accepted as no-ops:
+`--precompile` (there is no XLA cache to warm: the command returns at once
+without training), `--scan_chunk` (the loop runs one step per call, with
+the same schedule), `--use_pallas` (the device picks the kernels).
+
+Deliberate difference from the JAX CLI: on `--synthetic` the test split is
+every view (there: the first), so the replay cache covers every view that
+`cli.render --synthetic` draws.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="mygauhuman_torch trainer")
+    p.add_argument("--source_path", "-s", type=str, default="")
+    p.add_argument("--model_path", "-m", type=str, default="")
+    p.add_argument("--exp_name", type=str, default="default")
+    p.add_argument("--smpl_model_path", type=str,
+                   default="assets/SMPL_NEUTRAL_renderpeople.pkl")
+    p.add_argument("--smpl_type", type=str, default="smpl",
+                   help="smpl; smplx is not ported yet (raises)")
+    p.add_argument("--white_background", action="store_true")
+    p.add_argument("--motion_offset_flag", action="store_true", default=True)
+    p.add_argument("--eval", action="store_true", default=True)
+    p.add_argument("--iterations", type=int, default=1200)
+    p.add_argument("--sh_degree", type=int, default=3)
+    p.add_argument("--test_iterations", type=int, nargs="+", default=[1200])
+    p.add_argument("--save_iterations", type=int, nargs="+", default=[1200])
+    p.add_argument("--pbr_iteration", type=int, default=30_000,
+                   help="below --iterations the PBR phase would run: not ported "
+                        "yet (raises)")
+    p.add_argument("--use_kl_densify", action="store_true")
+    # densify schedule (reference OptimizationParams,
+    # arguments/__init__.py:91-96)
+    p.add_argument("--densification_interval", type=int, default=100)
+    p.add_argument("--densify_from_iter", type=int, default=400)
+    p.add_argument("--densify_until_iter", type=int, default=2000)
+    p.add_argument("--densify_grad_threshold", type=float, default=2e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--start_checkpoint", type=str, default="",
+                   help="resume from <dir>/chkpnt<iter> "
+                        "(reference --start_checkpoint, train.py:136-138)")
+    p.add_argument("--lpips_weights", type=str, default="",
+                   help=".npz VGG16+lin weights for LPIPS; without it a "
+                        "deterministic random backbone is used")
+    p.add_argument("--disable_lpips", action="store_true",
+                   help="drop the 0.01*lpips training term and eval metric")
+    p.add_argument("--gui", action="store_true",
+                   help="the SIBR live viewer: not ported yet (raises)")
+    p.add_argument("--gui_host", type=str, default="127.0.0.1",
+                   help="read only with --gui")
+    p.add_argument("--gui_port", type=int, default=6009, help="read only with --gui")
+    p.add_argument("--skip_galleries", action="store_true",
+                   help="do not save eval render galleries at test iters")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the built-in synthetic scene (no dataset)")
+    p.add_argument("--synthetic_size", type=int, default=128)
+    p.add_argument("--synthetic_verts", type=int, default=400,
+                   help="synthetic-scene Gaussian count (6890 = the ZJU "
+                        "SMPL-vertex-cloud scale)")
+    p.add_argument("--synthetic_views", type=int, default=4)
+    p.add_argument("--capacity", type=int, default=0,
+                   help="initial Gaussian capacity (0 = auto); it doubles when "
+                        "densification runs out of free slots")
+    p.add_argument("--use_pallas", action="store_true", default=None,
+                   help="accepted, no effect: CUDA tensors run the CUDA kernels, "
+                        "CPU tensors their plain versions")
+    p.add_argument("--scan_chunk", type=int, default=100,
+                   help="accepted, no effect: the loop runs one step per call; "
+                        "the schedule is the same as with any chunk")
+    p.add_argument("--multichip", action="store_true",
+                   help="the tile-sharded multi-device step: not ported yet (raises)")
+    p.add_argument("--bake_cells", type=int, default=128,
+                   help="PBR-phase occlusion bake window; read only by the PBR "
+                        "phase (not ported yet)")
+    p.add_argument("--bake_single_sweep", action="store_true",
+                   help="PBR-phase bake option; read only by the PBR phase")
+    p.add_argument("--occ_budget_mb", type=float, default=1024.0,
+                   help="PBR-phase occlusion buffer budget; read only by the PBR phase")
+    p.add_argument("--exchange_capacity", type=int, default=16384,
+                   help="multichip exchange window; read only with --multichip")
+    p.add_argument("--precompile", action="store_true",
+                   help="accepted, no effect but to return at once without "
+                        "training: there is no compile cache to warm (the CUDA "
+                        "kernels build at their first launch)")
+    p.add_argument("--precompile_max_cap", type=int, default=65536,
+                   help="read only by --precompile, which has nothing to warm")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a card) or cpu (the "
+                        "plain PyTorch path)")
+    return p
+
+
+def _is_smplx_source(smpl_type: str, source_path: str) -> bool:
+    return (smpl_type == "smplx" or source_path.endswith(".smc")
+            or "dna_rendering" in source_path.lower())
+
+
+def refuse_unported(args) -> None:
+    """NotImplementedError for a flag whose feature is not ported yet."""
+    if args.pbr_iteration < args.iterations:
+        raise NotImplementedError(
+            f"--pbr_iteration {args.pbr_iteration} below --iterations {args.iterations} "
+            "runs the PBR branch B, not ported to mygauhuman_torch yet (ROADMAP Queue 1 "
+            "item 3)")
+    if args.gui:
+        raise NotImplementedError(
+            "--gui (the SIBR network viewer) is not ported to mygauhuman_torch yet "
+            "(ROADMAP Queue 1 item 4)")
+    if _is_smplx_source(args.smpl_type, args.source_path):
+        raise NotImplementedError(
+            "SMPL-X bodies and DNA-Rendering (.smc) sources are not ported to "
+            "mygauhuman_torch yet (ROADMAP Queue 1 item 4)")
+    if args.multichip:
+        raise NotImplementedError(
+            "--multichip (the tile-sharded multi-device step) is not ported to "
+            "mygauhuman_torch yet (ROADMAP Queue 1 item 5)")
+
+
+def synthetic_scene(n_views: int, size: int, n_verts: int, device, capacity: int = 0):
+    """The built-in synthetic scene as `--synthetic` trains on it: capacity
+    `capacity` (1,024 when 0) doubled until it holds twice the Gaussians,
+    and 4 instance slots per capacity slot (real frames peak at ~4 instances
+    per alive Gaussian; truncation is counted in overflow_inst)."""
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+
+    cap = capacity or 1024
+    while cap < 2 * n_verts:
+        cap *= 2
+    return make_synthetic_scene(
+        n_views=n_views, width=size, height=size, n_verts=n_verts, capacity=cap,
+        raster_config=RasterizerConfig(instance_capacity=4 * cap), device=device)
+
+
+def load_body_model(smpl_type: str, model_path: str, source_path: str, device):
+    """--smpl_type dispatch: SMPL (24 joints). SMPL-X is not ported yet."""
+    if _is_smplx_source(smpl_type, source_path):
+        raise NotImplementedError(
+            "SMPL-X bodies are not ported to mygauhuman_torch yet (ROADMAP Queue 1 item 4)")
+    from mygauhuman_torch.models.smpl import load_smpl
+
+    return load_smpl(model_path, device=device)
+
+
+def main(argv=None) -> dict:
+    """Train; returns {elapsed_s, final_loss, test_psnr, out_dir} as the JAX
+    CLI does, plus the run's record: first / last iteration, Gaussians alive
+    and capacity at the end, the densify events' counters, the eval and save
+    phases' times, and the final TrainState (`state`)."""
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+
+    import torch
+
+    from mygauhuman_torch.config import Config, OptimizationConfig
+    from mygauhuman_torch.device import exact_convs, resolve_device
+    from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.models.io import save_ply
+    from mygauhuman_torch.models.mlps import init_lbs_offset, init_pose_refiner
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.render import render_frame
+    from mygauhuman_torch.train import losses as L
+    from mygauhuman_torch.train.checkpoint import save_checkpoint, save_eval_cache
+    from mygauhuman_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+        scene_lpips_crop,
+        train_loop,
+    )
+    from mygauhuman_torch.utils.image_io import write_png
+    from mygauhuman_torch.utils.logging import MetricLogger
+    from mygauhuman_torch.utils.profiling import PhaseTimer
+
+    dev = resolve_device(args.device)
+    out_dir = args.model_path or os.path.join("output", args.exp_name)
+    os.makedirs(out_dir, exist_ok=True)
+    if args.precompile:
+        print("precompile: nothing to warm (no compile cache; the CUDA kernels build at "
+              "their first launch) — run without --precompile to train")
+        return {"elapsed_s": 0.0, "precompiled": True, "final_loss": 0.0,
+                "test_psnr": 0.0, "out_dir": out_dir}
+
+    cfg = OptimizationConfig(
+        iterations=args.iterations,
+        pbr_iteration=args.pbr_iteration,
+        use_kl_densify=args.use_kl_densify,
+        densification_interval=args.densification_interval,
+        densify_from_iter=args.densify_from_iter,
+        densify_until_iter=args.densify_until_iter,
+        densify_grad_threshold=args.densify_grad_threshold,
+    )
+
+    if args.synthetic:
+        scene = synthetic_scene(args.synthetic_views, args.synthetic_size,
+                                args.synthetic_verts, dev, args.capacity)
+        smpl_model = scene.smpl_model
+        train_batches = scene.batches
+        # every view (the JAX CLI: the first), so that the replay cache
+        # covers every view cli.render draws
+        test_batches = scene.batches
+        state = scene.init_state
+        extent = scene.extent
+        smpl_vertices = scene.big_pose_verts
+        raster_cfg = scene.raster_config
+        test_pose_ids = list(range(len(test_batches)))
+    else:
+        from mygauhuman_torch.data.readers import (
+            camera_info_to_batch,
+            load_scene_info,
+            zju_normal_reencode,
+        )
+
+        smpl_model = load_body_model(args.smpl_type, args.smpl_model_path,
+                                     args.source_path, dev)
+        info = load_scene_info(
+            args.source_path, args.white_background, args.exp_name,
+            args.eval, smpl_model,
+        )
+        is_zju = "zju" in args.source_path.lower()
+
+        def to_batch(ci):
+            b = camera_info_to_batch(ci, dev)
+            if is_zju and ci.normal is not None:
+                b = b._replace(gt_normal=torch.as_tensor(zju_normal_reencode(ci.normal),
+                                                         device=dev))
+            return b
+
+        train_batches = [to_batch(c) for c in info.train_cameras]
+        test_batches = [to_batch(c) for c in info.test_cameras]
+        test_pose_ids = [c.pose_id for c in info.test_cameras]
+        pcd = info.point_cloud
+        state = G.create_from_pcd(
+            pcd.points, pcd.colors, pcd.normals, sh_degree=args.sh_degree,
+            capacity=args.capacity or None, device=dev,
+        )
+        extent = info.nerf_normalization["radius"]
+        smpl_vertices = torch.as_tensor(info.train_cameras[0].big_pose_world_vertex,
+                                        device=dev)
+        # as the synthetic branch: 4 instance slots per capacity slot
+        raster_cfg = RasterizerConfig(instance_capacity=4 * state.capacity)
+
+    n_joints = smpl_model.j_regressor.shape[0]
+    ts, tx = create_train_state(
+        cfg, state,
+        init_pose_refiner(torch.Generator().manual_seed(args.seed), total_bones=n_joints,
+                          device=dev),
+        init_lbs_offset(torch.Generator().manual_seed(args.seed + 1), total_bones=n_joints,
+                        device=dev),
+    )
+
+    # --start_checkpoint resume (reference train.py:136-138 ->
+    # gaussians.restore): shape-tolerant restore into the fresh state, then
+    # continue the iteration schedule where the checkpoint left off.
+    start_iteration = 0
+    if args.start_checkpoint:
+        from mygauhuman_torch.train.checkpoint import restore_checkpoint_like
+
+        ckpt_dir, base = os.path.split(args.start_checkpoint.rstrip("/"))
+        if not base.startswith("chkpnt"):
+            raise ValueError(
+                f"--start_checkpoint must point at <dir>/chkpnt<iter>, "
+                f"got {args.start_checkpoint}")
+        start_iteration = int(base[len("chkpnt"):])
+        ts = restore_checkpoint_like(ckpt_dir, start_iteration, ts)
+        print(f"resumed from {args.start_checkpoint} "
+              f"(iteration {start_iteration})")
+
+    # LPIPS: active by default, both in the 0.01*lpips training term
+    # (train.py:287) and the eval report (train.py:539). Without a weights
+    # file the backbone is a deterministic random VGG; --lpips_weights
+    # restores published-number parity.
+    lpips_obj = None
+    if not args.disable_lpips:
+        from mygauhuman_torch.eval.lpips import LPIPS
+
+        lpips_obj = LPIPS(weights_file=args.lpips_weights or None, device=dev)
+
+    bg = torch.ones(3, device=dev) if args.white_background else torch.zeros(3, device=dev)
+    # static LPIPS window sized to the scene's largest subject bbox
+    lpips_crop = scene_lpips_crop([b.bound_mask for b in train_batches])
+    step_fn = make_train_step(smpl_model, tx, cfg, raster_cfg, bg=bg, lpips_fn=lpips_obj,
+                              lpips_crop=lpips_crop)
+    logger = MetricLogger(out_dir)
+    timer = PhaseTimer()
+    eval_cache: dict = {}
+
+    def eval_metrics(render, gt) -> dict:
+        m = {"l1": L.l1_loss(render, gt), "psnr": L.psnr(render, gt),
+             "ssim": L.ssim(render, gt)}
+        if lpips_obj is not None:
+            # key is "lpips_rand" for the random-VGG fallback (not comparable
+            # to published LPIPS without pretrained weights)
+            m[lpips_obj.metric_name] = lpips_obj(render, gt)
+        return m
+
+    def run_eval(it, ts):
+        """Test-iteration report parity (train.py:458-556): L1/PSNR/SSIM/
+        LPIPS on the test split + a train sample, render galleries, and the
+        per-pose LBS replay cache."""
+        splits = {
+            "test": list(zip(test_pose_ids, test_batches)),
+            "train": list(enumerate(train_batches[:4])),
+        }
+        test_psnr = 0.0
+        alive_idx = torch.nonzero(ts.gauss.alive).reshape(-1)
+        n_alive = int(alive_idx.numel())
+        for split, items in splits.items():
+            if not items:
+                continue
+            rows: dict = {}
+            gdir = os.path.join(out_dir, f"eval_{it}", split)
+            if not args.skip_galleries:
+                os.makedirs(gdir, exist_ok=True)
+            for pose_id, batch in items:
+                with torch.no_grad(), exact_convs():
+                    out = render_frame(
+                        ts.gauss, batch.camera, batch.frame, smpl_model, bg=bg,
+                        active_sh_degree=min(it // 1000, args.sh_degree),
+                        mlp_params={"pose_refiner": ts.pose_refiner,
+                                    "lbs_offset": ts.lbs_offset},
+                        config=raster_cfg)
+                    m = eval_metrics(out.render, batch.gt_image)
+                vals = torch.stack([v.float() for v in m.values()]).cpu().tolist()
+                for k, v in zip(m, vals):
+                    rows.setdefault(k, []).append(v)
+                if split == "test":
+                    # keyed by pose_id (reference keys smpl_rot by pose,
+                    # train.py:548-552); rows in alive-compacted order, the
+                    # order save_ply writes, so the replay stays aligned with
+                    # a load_ply / compact_state'd state
+                    eval_cache[str(pose_id)] = {
+                        "transforms": out.transforms[alive_idx].cpu().numpy(),
+                        "translation": out.translation[alive_idx].cpu().numpy(),
+                    }
+                if not args.skip_galleries:
+                    pair = torch.cat([out.render, batch.gt_image], dim=1).cpu().numpy()
+                    write_png(os.path.join(gdir, f"{pose_id:03d}.png"),
+                              (np.clip(pair, 0, 1) * 255).astype(np.uint8))
+                    logger.log_image(it, f"{split}/render_{pose_id}", pair)
+            means = {k: float(np.mean(v)) for k, v in rows.items() if v}
+            logger.log(it, means, prefix=split)
+            print(f"[iter {it}] {split}: " + "  ".join(
+                f"{k} {v:.4f}" for k, v in means.items()
+            ) + f"  ({n_alive} gaussians)")
+            if split == "test":
+                test_psnr = means["psnr"]
+        return test_psnr
+
+    start = time.time()
+    last_psnr = 0.0
+    seen = {"first": None, "last": None, "densify": []}
+
+    def callback(it, ts, metrics):
+        nonlocal last_psnr
+        if seen["first"] is None:
+            seen["first"] = it
+        seen["last"] = it
+        if it % 100 == 0 or it == 1:
+            logger.log(it, metrics)
+            logger.log(it, {"n_gaussians": int(ts.gauss.num_alive)}, prefix="scene")
+        if "capacity" in metrics:       # a densify event ran at this iteration
+            seen["densify"].append({"iteration": it, "capacity": metrics["capacity"],
+                                    **{k[len("densify_"):]: v for k, v in metrics.items()
+                                       if k.startswith("densify_")}})
+        if it in args.test_iterations:
+            with timer.phase("eval"):
+                last_psnr = run_eval(it, ts)
+        if it in args.save_iterations:
+            with timer.phase("save"):
+                save_checkpoint(out_dir, it, ts, Config(optim=cfg))
+                save_ply(ts.gauss, os.path.join(out_dir, f"point_cloud_{it}.ply"))
+                save_eval_cache(os.path.join(out_dir, f"smpl_rot_{it}.npz"), eval_cache)
+
+    ts, metrics = train_loop(
+        ts, tx, step_fn, train_batches, cfg,
+        extent=extent, smpl_vertices=smpl_vertices,
+        max_sh_degree=args.sh_degree, seed=args.seed, callback=callback,
+        num_iterations=cfg.iterations,
+        start_iteration=min(start_iteration, cfg.iterations),
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.time() - start
+    n_alive = int(ts.gauss.num_alive)
+    print(f"training done: {cfg.iterations} iters in {elapsed:.1f}s "
+          f"({n_alive} gaussians)")
+    logger.close()
+    return {"elapsed_s": elapsed,
+            "final_loss": float(metrics.get("loss", 0.0)),
+            "test_psnr": last_psnr, "out_dir": out_dir,
+            "first_iteration": seen["first"], "last_iteration": seen["last"],
+            "n_gaussians": n_alive, "capacity": ts.gauss.capacity,
+            "densify": seen["densify"], "phases": timer.summary(), "state": ts}
+
+
+if __name__ == "__main__":
+    main()

@@ -7,14 +7,18 @@ JAX package. A served checkpoint crosses over as a PLY instead
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from mygauhuman_torch import config as C
 from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
 from mygauhuman_torch.eval.lpips import LPIPSParams
 from mygauhuman_torch.models.gaussians import GaussianParams, GaussianState
 from mygauhuman_torch.models.smpl import SMPLModel, model_from_arrays
-from mygauhuman_torch.train.optim import TrainableParams
+from mygauhuman_torch.train.optim import GAUSS_GROUPS, MLP_GROUPS, AdamState, TrainableParams
+from mygauhuman_torch.train.trainer import TrainState
 
 
 def tensor_tree(tree, device: str | torch.device = DEFAULT_DEVICE):
@@ -71,3 +75,39 @@ def lpips_params(params, device: str | torch.device = DEFAULT_DEVICE) -> LPIPSPa
     convs = tuple({"w": tensor_tree(np.transpose(np.asarray(c["w"]), (3, 2, 0, 1)), dev),
                    "b": tensor_tree(c["b"], dev)} for c in params.convs)
     return LPIPSParams(convs=convs, lins=tuple(tensor_tree(x, dev) for x in params.lins))
+
+
+def train_state(ts, device: str | torch.device = DEFAULT_DEVICE) -> TrainState:
+    """TrainState from the JAX package's TrainState (numpy leaves): the
+    Gaussians, the MLPs, the step, and the per-group Adam moments and counts
+    of its optax `multi_transform` state (`inner_states[group]` holds the
+    group's `scale_by_adam` state, its moments masked to the group's
+    leaves)."""
+    dev = resolve_device(device)
+    params = trainable_params(ts, dev)
+    adam = {g: s.inner_state[0] for g, s in ts.opt_state.inner_states.items()}
+
+    def moments(kind: str) -> TrainableParams:
+        gauss = GaussianParams(**{
+            f: tensor_tree(getattr(getattr(adam[g], kind).gaussians, f), dev)
+            for f, g in GAUSS_GROUPS.items()})
+        mlps = {f: tensor_tree(getattr(getattr(adam[g], kind), f), dev)
+                for f, g in MLP_GROUPS.items()}
+        return TrainableParams(gaussians=gauss, **mlps)
+
+    groups = (*GAUSS_GROUPS.values(), *MLP_GROUPS.values())
+    opt = AdamState(count={g: int(np.asarray(adam[g].count)) for g in groups},
+                    mu=moments("mu"), nu=moments("nu"))
+    return TrainState(gauss=gaussian_state(ts.gauss, dev), pose_refiner=params.pose_refiner,
+                      lbs_offset=params.lbs_offset, opt_state=opt, step=int(np.asarray(ts.step)))
+
+
+def config(cfg) -> C.Config:
+    """Config from the JAX package's Config: each group's fields by name
+    (the TPU-only keys, `C.TPU_ONLY_KEYS`, are left out)."""
+    def group(cls, src):
+        return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+    return C.Config(model=group(C.ModelConfig, cfg.model),
+                    pipeline=group(C.PipelineConfig, cfg.pipeline),
+                    optim=group(C.OptimizationConfig, cfg.optim))

@@ -64,5 +64,9 @@ def rgb2sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh2rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5
+
+
 def num_sh_coeffs(deg: int) -> int:
     return (deg + 1) ** 2

@@ -13,9 +13,8 @@ dL/dmeans2D for the densify statistics is the gradient of the explicit
 
 Differences from the JAX trainer, by design: no chunked multi-step program
 (the JAX `_chunk` fori_loop only amortised per-dispatch latency; this loop
-is plain Python), no state snapshot before raising on a non-finite loss
-(it waits for the checkpoint port), split noise from a `torch.Generator`,
-and the step count is a host int.
+is plain Python), split noise from a `torch.Generator`, and the step count
+is a host int.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ from mygauhuman_torch.models.smpl import SMPLModel
 from mygauhuman_torch.ops.rasterize import RasterizerConfig, densify_grad_scale
 from mygauhuman_torch.render.renderer import FrameInputs, render_frame
 from mygauhuman_torch.train import losses as L
+from mygauhuman_torch.train.checkpoint import save_checkpoint
 from mygauhuman_torch.train.optim import (
     Adam,
     AdamState,
@@ -245,7 +245,8 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
     seed), densify events every densification_interval iterations inside
     [densify_from_iter, densify_until_iter), opacity resets every
     opacity_reset_interval. The loss is checked every 50 iterations; a
-    non-finite one raises FloatingPointError."""
+    non-finite one snapshots the state to output/diverged/chkpnt<it> and
+    raises FloatingPointError."""
     num_iterations = num_iterations or cfg.iterations
     host_rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
@@ -261,7 +262,9 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
     for it in range(start_iteration + 1, num_iterations + 1):
         ts, metrics = step_fn(ts, pick_batch(), active_sh_degree_at(it, max_sh_degree))
         if it % 50 == 0 and not np.isfinite(float(metrics["loss"])):
-            raise FloatingPointError(f"non-finite loss at iteration {it}")
+            path = save_checkpoint("output/diverged", it, ts)
+            raise FloatingPointError(f"non-finite loss at iteration {it}; state snapshot at "
+                                     f"{path}")
         if (cfg.densify_from_iter <= it < cfg.densify_until_iter
                 and it % cfg.densification_interval == 0):
             ts = maybe_grow_capacity(ts)

@@ -194,18 +194,24 @@ def test_interop_state_roundtrip(setup):
 
 
 def test_package_imports_no_jax():
-    """Importing the port loads neither jax nor mygauhuman_tpu: both are
-    blocked in sys.modules first, so any import of them raises."""
+    """Importing the port loads neither jax nor mygauhuman_tpu, nor the
+    image libraries cv2 and imageio (the readers import those inside the
+    functions that use them): all are blocked in sys.modules first, so any
+    import of them raises."""
     code = (
         "import sys\n"
-        "for m in [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]:\n"
+        "blocked = ('jax', 'mygauhuman_tpu', 'cv2', 'imageio')\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['mygauhuman_tpu'] = None\n"
+        "for m in blocked:\n"
+        "    sys.modules[m] = None\n"
         "import mygauhuman_torch.render, mygauhuman_torch.data.synthetic\n"
         "import mygauhuman_torch.interop, mygauhuman_torch.models.io\n"
+        "import mygauhuman_torch.cli.train, mygauhuman_torch.cli.render\n"
+        "import mygauhuman_torch.cli.metrics, mygauhuman_torch.data.readers\n"
+        "import mygauhuman_torch.data.scene, mygauhuman_torch.train.checkpoint\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
-        "       and (m == 'jax' or m.startswith(('jax.', 'mygauhuman_tpu')))]\n"
+        "       and m.split('.')[0] in blocked]\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

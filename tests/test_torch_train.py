@@ -505,7 +505,7 @@ def test_geometry_frozen_past_pbr_iteration(tscene):
     assert not torch.equal(ts2.gauss.params.normal, ts.gauss.params.normal)
 
 
-def test_densify_event_resets_moments_and_loop_raises_on_nan(tscene):
+def test_densify_event_resets_moments_and_loop_raises_on_nan(tscene, tmp_path, monkeypatch):
     cfg = OptimizationConfig(iterations=40, densify_from_iter=10_000)
     ts, tx = _start(tscene, cfg)
     step = TT.make_train_step(tscene.smpl_model, tx, cfg, tscene.raster_config,
@@ -530,6 +530,7 @@ def test_densify_event_resets_moments_and_loop_raises_on_nan(tscene):
     def nan_step(ts, batch, deg):
         return ts, {"loss": torch.tensor(float("nan"))}
 
+    monkeypatch.chdir(tmp_path)    # the loop snapshots to output/diverged before raising
     with pytest.raises(FloatingPointError):
         TT.train_loop(ts2, tx, nan_step, tscene.batches,
                       dataclasses.replace(cfg, iterations=50), extent=tscene.extent,
