@@ -47,17 +47,22 @@ Phases, each of which must pass (any failure exits non-zero):
      capacity, densify counters, each kernel's launches in the run (A, B, B's
      backward, C in checkpoint mode, D1s and D2 each launched, D1 never);
      the saved snapshot loaded back bit-equal to the live state, and a resume
-     from it (--start_checkpoint) that starts at iteration 1,201; `cli.render`
-     on the run through the deform branch and the replay cache (fps_device,
-     fps_wall, PSNR / SSIM / LPIPS; the cached rows bit-equal to the eval's
-     deform transforms and the replay images bit-equal to a replay of them,
-     the difference to the deform render printed); `cli.metrics` on the
-     rendered PNGs
-     against the scene's ground truth as PNGs, its PSNR within 1e-4 of the
-     same metric on those 8-bit images in memory;
+     from it (--start_checkpoint) that starts at iteration 1,201; every
+     kernel (A, B and its backward, C in checkpoint mode, D) against its
+     plain version, with its times and bound, on the inputs of the run's
+     step at chkpnt600 (capacity 16,384) and chkpnt1200 (capacity 32,768),
+     under the CLI's raster config; `cli.render` on the run through the
+     deform branch and the replay cache (fps_device, fps_wall, PSNR / SSIM /
+     LPIPS; the cached rows bit-equal to the eval's deform transforms, the
+     replay images bit-equal to a replay of them, and within 1e-3 of a
+     deform render but at a few pixels, none beyond 1e-2); `cli.metrics` on
+     the rendered PNGs against the scene's ground truth as PNGs, its PSNR
+     within 1e-4 of the same metric on those 8-bit images in memory and
+     within 0.05 dB (8-bit quantisation) of results.json's;
   7. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line (`launches`: the cli.train run's; the other paths'
-     in `launches_by_path`), the card line, and as the last line
+     `kernels` JSON line (`launches`: the cli.train run's, and every number
+     measured on the inputs of its step at chkpnt600; the other paths'
+     launches in `launches_by_path`), the card line, and as the last line
      {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -97,8 +102,12 @@ DEFORM_BWD_RTOL = 1e-5     # kernel B's backward vs autograd of the plain forwar
 DEFORM_FWD_OPS, DEFORM_BWD_OPS, DEFORM_SCALAR_OPS = 297, 669, 129
 CLI_DIR = Path(__file__).resolve().parent / "build" / "cli_run"
 CLI_ITERS = 1200           # the branch-A budget (train_zju_mocap_refine.sh:4)
+CLI_MID = 600              # the run's other save, at capacity 16,384
 CLI_SCENE = dict(size=512, verts=6890, views=4)     # the bench point's widths
 METRICS_ATOL = 1e-4        # cli.metrics vs the same metric in memory (PSNR, dB)
+QUANT_PSNR_DB = 0.05       # cli.metrics (8-bit PNGs) vs results.json (float images), dB
+REPLAY_PIXELS = 8          # cli.render's replay vs a deform render of the trained model:
+REPLAY_ATOL = 1e-2         # pixels beyond RENDER_ATOL, and the largest difference
 # each kernel's own CUDA kernels, by name, for its device time
 KERNEL_KEYS = {
     "knn": ("knn_kernel",),
@@ -289,7 +298,85 @@ def row_errors(got, want):
     return err_rows, tol, float((err_rows / tol).max())
 
 
-def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=None):
+def check_kernel_a(label, q, r, k, excl, n_sm, report=None):
+    """Kernel A against its plain version on one set of queries: bit for
+    bit, its times against the plain version's and cdist + topk's, its bound."""
+    import torch
+
+    from mygauhuman_torch.ops.pallas_knn import (
+        KERNEL_QUERIES_PER_BLOCK,
+        KERNEL_WARPS_PER_BLOCK,
+        knn_small_refs_cuda,
+        knn_small_refs_plain,
+    )
+
+    d_k, i_k = knn_small_refs_cuda(q, r, k, exclude_self=excl)
+    d_p, i_p = knn_small_refs_plain(q, r, k, exclude_self=excl)
+    torch.cuda.synchronize()
+    # -fmad=false and the plain version's operation order: bit-equal
+    require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
+            f"KNN {label}: {int((i_k != i_p).sum())} indices and "
+            f"{int((d_k != d_p).sum())} distances differ from the plain version")
+    err = float((d_k - d_p).abs().max())
+    ms = cuda_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl))
+    dms = device_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl), "knn")
+    plain_ms = cuda_ms(lambda: knn_small_refs_plain(q, r, k, exclude_self=excl), reps=5)
+    lib_ms = cuda_ms(lambda: torch.cdist(q, r).topk(k, dim=1, largest=False), reps=5)
+    blocks = -(-q.shape[0] // KERNEL_QUERIES_PER_BLOCK)
+    print(f"[kernel A knn] {label}: Q={q.shape[0]} R={r.shape[0]} k={k} "
+          f"bit-equal to the plain version (max abs d2 err {err:.3e}), "
+          f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, cdist+topk "
+          f"{lib_ms:.4f} ms; "
+          f"{blocks} blocks, {blocks * KERNEL_WARPS_PER_BLOCK / n_sm:.1f} warps per SM "
+          f"on {n_sm} SMs", flush=True)
+    require(ms < lib_ms, f"KNN {label}: kernel {ms} ms not faster than cdist+topk")
+    if report is not None:
+        Q, R = q.shape[0], r.shape[0]   # ~11 fp32 ops per pair (csrc/knn.cu)
+        b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
+        report["knn"] = dict(name="knn", route="cuda", source="mygauhuman_torch/csrc/knn.cu",
+                             replaces="mygauhuman_tpu/ops/pallas_knn.py:32",
+                             max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_kernel_b(label, args, n_sm, report=None):
+    """Kernel B's forward against its plain version on one call: bit for
+    bit, its times and bound."""
+    import torch
+
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.ops.pallas_deform import deform_rows_cuda, deform_rows_plain
+
+    args = [a.detach().contiguous() for a in args]
+    N = args[0].shape[1]
+    got = deform_rows_cuda(*args)
+    want = deform_rows_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # -fmad=false and the plain version's operation order: bit-equal
+    require(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+            f"deform {label}: {int((got != want).sum())} values differ from the plain "
+            f"version (max abs err {err})")
+    ms = cuda_ms(lambda: deform_rows_cuda(*args), reps=50)
+    dms = device_ms(lambda: deform_rows_cuda(*args), "deform", reps=50)
+    plain_ms = cuda_ms(lambda: deform_rows_plain(*args), reps=10)
+    threads = cuda_lib.library("deform").deform_threads()
+    blocks = -(-N // threads)
+    print(f"[kernel B deform] {label}: N={N} bit-equal to the plain version, "
+          f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms; {blocks} "
+          f"blocks of {threads} on {n_sm} SMs", flush=True)
+    if report is not None:
+        # 216 B per Gaussian (33 floats in, 21 out)
+        b_ms, b_by = bound(DEFORM_FWD_OPS * N, (12 + 12 + 9 + 21) * 4 * N + 32 * 4)
+        report["deform"] = dict(name="deform", route="cuda",
+                                source="mygauhuman_torch/csrc/deform.cu",
+                                replaces="mygauhuman_tpu/ops/pallas_deform.py:139",
+                                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=None,
+                   ckpt_report=False):
     """Kernel C against its plain version on one captured call, its time and
     bound, and its checkpoint mode: the same output, the checkpoints equal
     to D1's bit for bit and to the plain ones within CKPT_RTOL."""
@@ -332,13 +419,17 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
     dms_ck = device_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw),
                        "blend_fwd")
     plain_ms = cuda_ms(lambda: pb.blend_instances_plain(*args, **kw), reps=3, warmup=1)
+    if ckpt_report:   # checkpoint mode's plain version: the blend and the checkpoints
+        plain_ms = cuda_ms(lambda: (pb.blend_instances_plain(*args, **kw),
+                                    pb.blend_fwd_checkpoints_plain(*args, **tiles)),
+                           reps=3, warmup=1)
     n_busy = int((counts > 0).sum())
     n_chunks = int(ck.n_chunks)
     print(f"[kernel C blend_fwd] {label}: tiles {n_tiles} ({n_busy} with instances, longest "
           f"{int(counts.max())}), instances {int(counts.sum())}, C={C}, max abs err {err:.3e} "
           f"(depth row {err_depth:.3e}), kernel {ms:.4f} ms (device {fmt_ms(dms)}), checkpoint "
           f"mode {ms_ck:.4f} ms (device {fmt_ms(dms_ck)}; D1 on the same inputs {ms_d1:.4f} ms), "
-          f"plain {plain_ms:.4f} ms", flush=True)
+          f"plain{' with the checkpoints' if ckpt_report else ''} {plain_ms:.4f} ms", flush=True)
     # the work these inputs need: pairs evaluated before each pixel stops,
     # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
     # rows the kernel loads (x .. depth, features) of the instances some
@@ -359,11 +450,15 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
           f"mismatches off near-ties {e['stop_mismatch']}, near-ties {e['near_ties']}, "
           f"T rel {e['t_rel']:.3e}, T_final rel {e['t_final_rel']:.3e}", flush=True)
     if report is not None:
+        # ckpt_report: the checkpoint mode's time and bound (a training
+        # step's forward) in place of the plain mode's
         report["blend_fwd"] = dict(
             name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
             replaces="mygauhuman_tpu/ops/pallas_blend.py:362",
-            max_abs_err=max(err, err_depth), ms=ms, device_ms=dms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            max_abs_err=max(err, err_depth), ms=ms_ck if ckpt_report else ms,
+            device_ms=dms_ck if ckpt_report else dms, plain_ms=plain_ms,
+            bound_ms=(b_ck if ckpt_report else (b_ms, b_by))[0],
+            bound_by=(b_ck if ckpt_report else (b_ms, b_by))[1], library_ms=None)
     return dms_ck, b_ck[0]
 
 
@@ -505,7 +600,7 @@ def check_kernel_d(label, call, C, report, pb, pbb, main):
             bound_ms=b2[0], bound_by=b2[1], library_ms=None)
 
 
-def check_kernel_b_bwd(call, report):
+def check_kernel_b_bwd(call, report, label="training step"):
     """Kernel B's backward on one captured backward call of a training step:
     bit for bit against its plain version (with the gradients the step asks
     for, and with all four, the scalars' two-pass sum included), and within
@@ -557,7 +652,7 @@ def check_kernel_b_bwd(call, report):
         nbytes += 2 * 21 * 4 * -(-N // 32) + 32 * 4
         ops += DEFORM_SCALAR_OPS * N
     b_ms, b_by = bound(ops, nbytes)
-    print(f"[kernel B deform_bwd] training step: N={N}, gradients asked for "
+    print(f"[kernel B deform_bwd] {label}: N={N}, gradients asked for "
           f"{[n for n, need in zip(names, needs) if need]}; bit-equal to the plain version "
           f"(asked, and all four), the same bits twice; vs autograd of the plain forward: "
           + ", ".join(f"d_{n} {e:.3e}" for n, e in zip(names, errs))
@@ -779,20 +874,59 @@ def train_bench(scene, cfg, train, dev):
     return launches
 
 
-def tree_leaves(tree) -> list:
-    """Every leaf of a tree of NamedTuples, dicts, lists and tuples."""
-    if isinstance(tree, (tuple, list)):
-        return [leaf for item in tree for leaf in tree_leaves(item)]
-    if isinstance(tree, dict):
-        return [leaf for item in tree.values() for leaf in tree_leaves(item)]
-    return [tree]
+def cli_kernel_checks(out, scene, dev, n_sm):
+    """Every kernel of cli.train's step against its plain version on the
+    inputs that step gives it, under the CLI's raster config (instance
+    capacity 4 x the starting capacity), at two of the run's snapshots:
+    chkpnt600 (capacity 16,384, the shape of iterations 1-1,000) and
+    chkpnt1200 (capacity 32,768, iterations 1,001-1,200). Returns the
+    report of chkpnt600, the shape of most of the run's launches."""
+    import mygauhuman_torch.models.lbs as lbs_mod
+    import mygauhuman_torch.ops.pallas_blend as pb
+    import mygauhuman_torch.ops.pallas_blend_bwd as pbb
+    import mygauhuman_torch.ops.pallas_deform as pd
+    from mygauhuman_torch.train.checkpoint import restore_checkpoint_like
+    from mygauhuman_torch.train.trainer import active_sh_degree_at
+
+    train = make_trainer(scene, scene.raster_config, dev)
+    b0 = scene.batches[0]
+    reports = {}
+    for it in (CLI_MID, CLI_ITERS):
+        ts = restore_checkpoint_like(str(out), it, train["ts"])
+        seen: dict = {}
+        with capture(lbs_mod, "knn", seen), capture(lbs_mod, "deform_rows", seen), \
+                capture(pb, "blend_rows_raw", seen), capture(pb, "blend_tiles_raw", seen), \
+                capture(pbb, "blend_tiles_bwd_from_ckpt_raw", seen), \
+                capture(pd, "deform_rows_bwd_cuda", seen):
+            train["step"].loss_and_grads(ts, b0, active_sh_degree_at(it, 3))
+        label = (f"cli.train chkpnt{it} (capacity {ts.gauss.capacity}, "
+                 f"{int(ts.gauss.num_alive)} alive)")
+        report = reports[it] = {}
+        (q, r), kw = seen["knn"]
+        require(kw.get("k") == 1 and q.shape[0] == ts.gauss.capacity,
+                f"{label}: unexpected KNN call")
+        check_kernel_a(label, q.detach(), r.detach(), 1, False, n_sm, report)
+        check_kernel_b(label, seen["deform_rows"][0], n_sm, report)
+        planar = "blend_rows_raw" in seen
+        (data, starts, counts, tile_base), kw = seen["blend_rows_raw" if planar
+                                                     else "blend_tiles_raw"]
+        require(kw.get("checkpoints") is True, f"{label}: no checkpoint mode")
+        check_kernel_c(f"{label} {'planar' if planar else 'tile-major'}", data, starts, counts,
+                       tile_base, dict(kw, planar=planar), pb, pbb, report=report,
+                       ckpt_report=True)
+        check_kernel_d(label, seen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"], report,
+                       pb, pbb, main=True)
+        check_kernel_b_bwd(seen["deform_rows_bwd_cuda"], report, label)
+    return reports[CLI_MID]
 
 
-def cli_phase(dev):
+def cli_phase(dev, n_sm):
     """The entry points: cli.train's 1,200 iterations, the snapshot reloaded
-    and resumed, cli.render on both branches, cli.metrics. Returns the
-    launches of each run."""
+    and resumed, each kernel on the inputs of the run's step, cli.render on
+    both branches, cli.metrics. Returns the launches of each run and the
+    report of the kernels on the run's inputs."""
     import torch
+    from torch.utils._pytree import tree_leaves
 
     from mygauhuman_torch.cli import metrics as cli_metrics
     from mygauhuman_torch.cli import render as cli_render
@@ -812,7 +946,7 @@ def cli_phase(dev):
     t0 = time.perf_counter()
     res = cli_train.main(synth + [
         "--iterations", str(CLI_ITERS),
-        "--test_iterations", str(CLI_ITERS), "--save_iterations", "600", str(CLI_ITERS),
+        "--test_iterations", str(CLI_ITERS), "--save_iterations", str(CLI_MID), str(CLI_ITERS),
         "--skip_galleries", "--model_path", str(out), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -872,6 +1006,7 @@ def cli_phase(dev):
                                       CLI_SCENE["verts"], dev)
     torch.cuda.synchronize()
     setup = dict(cuda_lib.LAUNCHES)
+    cli_report = cli_kernel_checks(out, scene, dev, n_sm)
 
     # cli.render: the deform branch, then the replay cache (the branch the
     # reference's 189 FPS measures; its PNGs stay in renders_1200/)
@@ -906,7 +1041,8 @@ def cli_phase(dev):
     # phase 3's check (<= 1e-3 at the bench point); on the trained model the
     # two compute positions by different float expressions (kernel B's
     # chain, transforms @ x + translation), so rounding can flip a depth
-    # order or a tile edge; the difference is printed. cli.render's deform
+    # order or a tile edge at a few pixels: at most REPLAY_PIXELS of them
+    # beyond RENDER_ATOL, none beyond REPLAY_ATOL. cli.render's deform
     # branch runs without the MLPs (as the JAX CLI) and differs by them.
     cache = load_eval_cache(str(out / f"smpl_rot_{CLI_ITERS}.npz"))
     state = compact_state(back.gauss)
@@ -945,6 +1081,9 @@ def cli_phase(dev):
           flush=True)
     require(cache_exact and replay_exact, "the replay cache does not reproduce the eval's "
             "deform transforms, or cli.render does not replay them")
+    require(n_off <= REPLAY_PIXELS and worst <= REPLAY_ATOL,
+            f"cli.render's replay differs from the deform render at {n_off} pixels beyond "
+            f"{RENDER_ATOL} (at most {REPLAY_PIXELS}), max abs {worst} (at most {REPLAY_ATOL})")
 
     # cli.metrics on the replay PNGs against the ground truth as PNGs
     gt_dir = CLI_DIR / "gt"
@@ -962,12 +1101,15 @@ def cli_phase(dev):
     print(f"[cli] metrics: PSNR {got['psnr']:.6f} from the PNGs, {mem['psnr']:.6f} on the "
           f"same 8-bit images in memory (tolerance {METRICS_ATOL}); results.json (float "
           f"renders vs float ground truth) {res_json['psnr']:.6f}, 8-bit quantisation moves "
-          f"it {got['psnr'] - res_json['psnr']:+.6f} dB; SSIM {got['ssim']:.6f}", flush=True)
+          f"it {got['psnr'] - res_json['psnr']:+.6f} dB (at most {QUANT_PSNR_DB}); SSIM "
+          f"{got['ssim']:.6f}", flush=True)
     require(abs(got["psnr"] - mem["psnr"]) <= METRICS_ATOL
             and abs(got["ssim"] - mem["ssim"]) <= METRICS_ATOL,
             "cli.metrics disagrees with the metrics of its images")
+    require(abs(got["psnr"] - res_json["psnr"]) <= QUANT_PSNR_DB,
+            "cli.metrics' PSNR is beyond 8-bit quantisation of results.json's")
     return {"cli_train": train_launches, "cli_render_deform": render_launches["deform"],
-            "cli_render_replay": render_launches["replay"]}
+            "cli_render_replay": render_launches["replay"]}, cli_report
 
 
 def main() -> None:
@@ -982,13 +1124,6 @@ def main() -> None:
     from mygauhuman_torch.models.io import load_ply, save_ply
     import mygauhuman_torch.ops.pallas_deform as pd
     from mygauhuman_torch.ops import cuda_lib
-    from mygauhuman_torch.ops.pallas_deform import deform_rows_cuda, deform_rows_plain
-    from mygauhuman_torch.ops.pallas_knn import (
-        KERNEL_QUERIES_PER_BLOCK as KNN_QUERIES_PER_BLOCK,
-        KERNEL_WARPS_PER_BLOCK as KNN_WARPS_PER_BLOCK,
-        knn_small_refs_cuda,
-        knn_small_refs_plain,
-    )
     from mygauhuman_torch.ops.rasterize import RasterizerConfig
     from mygauhuman_torch.render import render_frame
     from mygauhuman_torch.utils.transforms import inverse_sigmoid
@@ -1062,33 +1197,7 @@ def main() -> None:
                  ("loop after densify", q_loop, r_main, 1, False)]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, q, r, k, excl in knn_cases:
-        d_k, i_k = knn_small_refs_cuda(q, r, k, exclude_self=excl)
-        d_p, i_p = knn_small_refs_plain(q, r, k, exclude_self=excl)
-        torch.cuda.synchronize()
-        # -fmad=false and the plain version's operation order: bit-equal
-        require(torch.equal(i_k, i_p) and torch.equal(d_k, d_p),
-                f"KNN {label}: {int((i_k != i_p).sum())} indices and "
-                f"{int((d_k != d_p).sum())} distances differ from the plain version")
-        err = float((d_k - d_p).abs().max())
-        ms = cuda_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl))
-        dms = device_ms(lambda: knn_small_refs_cuda(q, r, k, exclude_self=excl), "knn")
-        plain_ms = cuda_ms(lambda: knn_small_refs_plain(q, r, k, exclude_self=excl), reps=5)
-        lib_ms = cuda_ms(lambda: torch.cdist(q, r).topk(k, dim=1, largest=False), reps=5)
-        blocks = -(-q.shape[0] // KNN_QUERIES_PER_BLOCK)
-        print(f"[kernel A knn] {label}: Q={q.shape[0]} R={r.shape[0]} k={k} "
-              f"bit-equal to the plain version (max abs d2 err {err:.3e}), "
-              f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, cdist+topk "
-              f"{lib_ms:.4f} ms; "
-              f"{blocks} blocks, {blocks * KNN_WARPS_PER_BLOCK / n_sm:.1f} warps per SM "
-              f"on {n_sm} SMs", flush=True)
-        require(ms < lib_ms, f"KNN {label}: kernel {ms} ms not faster than cdist+topk")
-        if label == "main path":
-            Q, R = q.shape[0], r.shape[0]   # ~11 fp32 ops per pair (csrc/knn.cu)
-            b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
-            report["knn"] = dict(name="knn", route="cuda", source="mygauhuman_torch/csrc/knn.cu",
-                                 replaces="mygauhuman_tpu/ops/pallas_knn.py:32",
-                                 max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        check_kernel_a(label, q, r, k, excl, n_sm, report if label == "main path" else None)
 
     # kernel B
     args_main, _ = seen["deform_rows"]
@@ -1096,31 +1205,7 @@ def main() -> None:
     require(n_main == state.capacity, "unexpected deform call")
     odd = [a[:, :BENCH["n_verts"]] if a.shape[0] != 1 else a for a in args_main]
     for label, args in (("main path", args_main), ("odd N", odd)):
-        args = [a.contiguous() for a in args]
-        got = deform_rows_cuda(*args)
-        want = deform_rows_plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        # -fmad=false and the plain version's operation order: bit-equal
-        require(bool(torch.isfinite(got).all()) and torch.equal(got, want),
-                f"deform {label}: {int((got != want).sum())} values differ from the plain "
-                f"version (max abs err {err})")
-        ms = cuda_ms(lambda: deform_rows_cuda(*args), reps=50)
-        dms = device_ms(lambda: deform_rows_cuda(*args), "deform", reps=50)
-        plain_ms = cuda_ms(lambda: deform_rows_plain(*args), reps=10)
-        threads = cuda_lib.library("deform").deform_threads()
-        blocks = -(-args[0].shape[1] // threads)
-        print(f"[kernel B deform] {label}: N={args[0].shape[1]} bit-equal to the plain version, "
-              f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms; {blocks} "
-              f"blocks of {threads} on {n_sm} SMs", flush=True)
-        if label == "main path":
-            # 216 B per Gaussian (33 floats in, 21 out)
-            b_ms, b_by = bound(DEFORM_FWD_OPS * n_main, (12 + 12 + 9 + 21) * 4 * n_main + 32 * 4)
-            report["deform"] = dict(name="deform", route="cuda",
-                                    source="mygauhuman_torch/csrc/deform.cu",
-                                    replaces="mygauhuman_tpu/ops/pallas_deform.py:139",
-                                    max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        check_kernel_b(label, args, n_sm, report if label == "main path" else None)
 
     # kernel C: planar at 512^2 (the main path), tile-major at 208x144
     for label, key, planar in ((f"serving {BENCH['width']}x{BENCH['height']} planar",
@@ -1313,31 +1398,38 @@ def main() -> None:
 
     # ---- phase 6: the entry points -------------------------------------------
     t0 = time.perf_counter()
-    cli_launches = cli_phase(dev)
+    cli_launches, cli_report = cli_phase(dev, n_sm)
     print(f"[cli] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 7: results --------------------------------------------------
     # time lost on the main paths, launches x (device ms - bound): the 4 + 4
-    # serving frames of phase 3 and the 60-iteration loop
-    # (kernels B and C: the loop at the training step's capture)
+    # serving frames of phase 3, the 60-iteration loop (kernels B and C: the
+    # loop at the training step's capture) and cli.train's 1,200 iterations
+    # (each kernel at the inputs of the step at chkpnt600, kernel C in its
+    # checkpoint mode)
+    cli_train_launches = cli_launches.pop("cli_train")
     lost = []
     for name, e in report.items():
         loop_ms, loop_bound = e.get("loop_device_ms", e["device_ms"]), e.get("loop_bound_ms",
                                                                               e["bound_ms"])
-        if e["device_ms"] is None or loop_ms is None:
+        c = cli_report[name]
+        if None in (e["device_ms"], loop_ms, c["device_ms"]):
             lost.append(f"{name} not measured")
             continue
         lost.append(f"{name} {serving_launches[name] * (e['device_ms'] - e['bound_ms']):.4f} / "
-                    f"{loop_launches[name] * (loop_ms - loop_bound):.4f} (launches "
-                    f"{serving_launches[name]} / {loop_launches[name]})")
-    print("[lost] ms lost on the main paths from device time, serving / loop: "
+                    f"{loop_launches[name] * (loop_ms - loop_bound):.4f} / "
+                    f"{cli_train_launches[name] * (c['device_ms'] - c['bound_ms']):.4f} "
+                    f"(launches {serving_launches[name]} / {loop_launches[name]} / "
+                    f"{cli_train_launches[name]})")
+    print("[lost] ms lost on the main paths from device time, serving / loop / cli.train: "
           + "; ".join(lost), flush=True)
-    # `launches`: this slice's main path, cli.train's 1,200 iterations; the
-    # other paths' counts beside it
+    # this slice's main path is cli.train's 1,200 iterations: `launches` are
+    # its counts and every number is measured on the inputs of its step at
+    # chkpnt600; the other paths' counts beside them
     paths = {"serving": serving_launches, "loop": loop_launches, **cli_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: report[n][k] for k in keys}, launches=cli_launches["cli_train"][n],
+    kernels = [dict({k: cli_report[n][k] for k in keys}, launches=cli_train_launches[n],
                     launches_by_path={p: c[n] for p, c in paths.items()})
                for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_bwd",
                          "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
