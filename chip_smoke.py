@@ -59,11 +59,28 @@ Phases, each of which must pass (any failure exits non-zero):
      the rendered PNGs against the scene's ground truth as PNGs, its PSNR
      within 1e-4 of the same metric on those 8-bit images in memory and
      within 0.05 dB (8-bit quantisation) of results.json's;
-  7. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line (`launches`: the cli.train run's, and every number
-     measured on the inputs of its step at chkpnt600; the other paths'
-     launches in `launches_by_path`), the card line, and as the last line
-     {"ok": true, "device": {...}}.
+  7. branch B and relighting through the entry points, under build/cli_run/:
+     `cli.train` resumes phase 6's chkpnt1200 for 300 branch-B iterations
+     (--iterations 1500 --pbr_iteration 1200; 4 occlusion bakes at capacity
+     32,768): wall time and ms per iteration, each bake's seconds, launches,
+     sweeps and bake_out_of_budget (0), the run's launches (kernel B's
+     backward and D1 never), relit PSNR at 1,201 and 1,500; finite losses, a
+     light >= 0, geometry and MLPs bit-equal to chkpnt1200, albedo and
+     roughness learned, chkpnt1500 loaded back bit-equal; kernel C tile-major
+     on a bake face against its plain version; a branch-B step at chkpnt1200:
+     kernels A, B, C (checkpoint mode) and D against their plain versions, no
+     kernel B backward, the same step twice bit-equal; the step on the card
+     against the CPU at 128^2; `cli.render --relight envmap_1500.npy`
+     (relight_oracle PSNR, psnr_drift), CUDA-event ms per relit frame beside
+     the unlit one, GPU vs CPU shading within 1e-5; the first camera's bake
+     redone on the CPU in a process of its own while the card trains, its
+     uint8 maps within one step of the card's;
+  8. each kernel's time lost on the main paths from its device time, a
+     `kernels` JSON line (`launches`: the branch-B run's, and every number
+     measured on the inputs of its step at chkpnt1200, kernel C tile-major
+     on a bake face, B's backward on cli.train's step at chkpnt600; the other
+     paths' launches in `launches_by_path`), the card line, and as the last
+     line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -108,6 +125,11 @@ METRICS_ATOL = 1e-4        # cli.metrics vs the same metric in memory (PSNR, dB)
 QUANT_PSNR_DB = 0.05       # cli.metrics (8-bit PNGs) vs results.json (float images), dB
 REPLAY_PIXELS = 8          # cli.render's replay vs a deform render of the trained model:
 REPLAY_ATOL = 1e-2         # pixels beyond RENDER_ATOL, and the largest difference
+PBR_ITERS = 300            # branch B from chkpnt1200: --iterations 1500 --pbr_iteration 1200
+SHADE_ATOL = 1e-5          # GPU vs CPU shading of the same G-buffers
+BAKE_U8_STEP = 1           # GPU vs CPU bake of one camera: uint8 maps differ by at most 1
+RELIGHT_FRAMES = 32        # CUDA-event frames per relit / unlit timing
+CPU_BAKE_THREADS = 6       # the CPU bake's process, beside the card's own host thread
 # each kernel's own CUDA kernels, by name, for its device time
 KERNEL_KEYS = {
     "knn": ("knn_kernel",),
@@ -323,16 +345,16 @@ def check_kernel_a(label, q, r, k, excl, n_sm, report=None):
     plain_ms = cuda_ms(lambda: knn_small_refs_plain(q, r, k, exclude_self=excl), reps=5)
     lib_ms = cuda_ms(lambda: torch.cdist(q, r).topk(k, dim=1, largest=False), reps=5)
     blocks = -(-q.shape[0] // KERNEL_QUERIES_PER_BLOCK)
+    Q, R = q.shape[0], r.shape[0]   # ~11 fp32 ops per pair (csrc/knn.cu)
+    b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
     print(f"[kernel A knn] {label}: Q={q.shape[0]} R={r.shape[0]} k={k} "
           f"bit-equal to the plain version (max abs d2 err {err:.3e}), "
           f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms, cdist+topk "
-          f"{lib_ms:.4f} ms; "
+          f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
           f"{blocks} blocks, {blocks * KERNEL_WARPS_PER_BLOCK / n_sm:.1f} warps per SM "
           f"on {n_sm} SMs", flush=True)
     require(ms < lib_ms, f"KNN {label}: kernel {ms} ms not faster than cdist+topk")
     if report is not None:
-        Q, R = q.shape[0], r.shape[0]   # ~11 fp32 ops per pair (csrc/knn.cu)
-        b_ms, b_by = bound(11.0 * Q * R, 12 * (Q + R) + 8 * Q * k)
         report["knn"] = dict(name="knn", route="cuda", source="mygauhuman_torch/csrc/knn.cu",
                              replaces="mygauhuman_tpu/ops/pallas_knn.py:32",
                              max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
@@ -362,12 +384,12 @@ def check_kernel_b(label, args, n_sm, report=None):
     plain_ms = cuda_ms(lambda: deform_rows_plain(*args), reps=10)
     threads = cuda_lib.library("deform").deform_threads()
     blocks = -(-N // threads)
+    # 216 B per Gaussian (33 floats in, 21 out)
+    b_ms, b_by = bound(DEFORM_FWD_OPS * N, (12 + 12 + 9 + 21) * 4 * N + 32 * 4)
     print(f"[kernel B deform] {label}: N={N} bit-equal to the plain version, "
-          f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms; {blocks} "
-          f"blocks of {threads} on {n_sm} SMs", flush=True)
+          f"kernel {ms:.4f} ms (device {fmt_ms(dms)}), plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.5f} ms ({b_by}); {blocks} blocks of {threads} on {n_sm} SMs", flush=True)
     if report is not None:
-        # 216 B per Gaussian (33 floats in, 21 out)
-        b_ms, b_by = bound(DEFORM_FWD_OPS * N, (12 + 12 + 9 + 21) * 4 * N + 32 * 4)
         report["deform"] = dict(name="deform", route="cuda",
                                 source="mygauhuman_torch/csrc/deform.cu",
                                 replaces="mygauhuman_tpu/ops/pallas_deform.py:139",
@@ -376,10 +398,11 @@ def check_kernel_b(label, args, n_sm, report=None):
 
 
 def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=None,
-                   ckpt_report=False):
+                   ckpt_report=False, name="blend_fwd"):
     """Kernel C against its plain version on one captured call, its time and
     bound, and its checkpoint mode: the same output, the checkpoints equal
-    to D1's bit for bit and to the plain ones within CKPT_RTOL."""
+    to D1's bit for bit and to the plain ones within CKPT_RTOL. The report
+    entry is `name`'s, with the TPU kernel of its layout."""
     import torch
 
     kw = {k: v for k, v in kw.items() if k != "checkpoints"}
@@ -452,9 +475,9 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
     if report is not None:
         # ckpt_report: the checkpoint mode's time and bound (a training
         # step's forward) in place of the plain mode's
-        report["blend_fwd"] = dict(
-            name="blend_fwd", route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
-            replaces="mygauhuman_tpu/ops/pallas_blend.py:362",
+        report[name] = dict(
+            name=name, route="cuda", source="mygauhuman_torch/csrc/blend_fwd.cu",
+            replaces="mygauhuman_tpu/ops/pallas_blend.py:" + ("362" if planar else "288"),
             max_abs_err=max(err, err_depth), ms=ms_ck if ckpt_report else ms,
             device_ms=dms_ck if ckpt_report else dms, plain_ms=plain_ms,
             bound_ms=(b_ck if ckpt_report else (b_ms, b_by))[0],
@@ -1112,6 +1135,438 @@ def cli_phase(dev, n_sm):
             "cli_render_replay": render_launches["replay"]}, cli_report
 
 
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """module.name replaced by fn(original) for the duration."""
+    orig = getattr(module, name)
+    setattr(module, name, fn(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def profile_calls(fn, n, label):
+    """Print n calls of fn under torch.profiler: wall and device-busy us per
+    call, the busy share, kernel launches per call, the top device kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / n
+    kernels_ = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(device_us(e) for e in kernels_) / n
+    if busy_us <= 0:
+        print(f"[profile] {label}: device time not measured (no CUDA events)", flush=True)
+        return
+    print(f"[profile] {label}: {wall_us:.0f} us wall, {busy_us:.0f} us device busy "
+          f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels_) / n:.0f} kernel "
+          f"launches per call", flush=True)
+    for e in sorted(kernels_, key=device_us, reverse=True)[:6]:
+        print(f"[profile]   {device_us(e) / n:8.1f} us {e.count / n:5.1f}x  {e.key[:90]}")
+
+
+def cpu_bake_worker(inputs_path, out_path, threads):
+    """One camera's bake on the CPU (the plain versions), in its own process,
+    on the inputs the card's bake was given."""
+    import torch
+
+    from mygauhuman_torch.occlusion import baking
+
+    torch.set_num_threads(threads)
+    a = torch.load(inputs_path, weights_only=True)
+    t0 = time.perf_counter()
+    occ, oob, n_sweeps = baking.bake_occlusion_full(
+        *(a[k] for k in ("means", "cov6", "opacity", "normals", "alive")))
+    torch.save({"occ": occ, "oob": oob, "n_sweeps": n_sweeps,
+                "seconds": time.perf_counter() - t0}, out_path)
+
+
+def pbr_step_checks(step_args, step, dev, n_sm, pb, pbb):
+    """A branch-B step on cli.train's chkpnt1200 state: kernels A, B, C
+    (checkpoint mode) and D against their plain versions on its inputs, no
+    kernel B backward, and the same step twice bit-equal. Returns the report."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    import mygauhuman_torch.models.lbs as lbs_mod
+    from mygauhuman_torch.ops import cuda_lib
+
+    ts = step_args[0]
+    seen: dict = {}
+    cuda_lib.reset_launches()
+    with capture(lbs_mod, "knn", seen), capture(lbs_mod, "deform_rows", seen), \
+            capture(pb, "blend_rows_raw", seen), capture(pb, "blend_tiles_raw", seen), \
+            capture(pbb, "blend_tiles_bwd_from_ckpt_raw", seen):
+        first = step(*step_args)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"[pbr] one branch-B step at chkpnt{CLI_ITERS} (capacity {ts.gauss.capacity}, "
+          f"{int(ts.gauss.num_alive)} alive): launches {launches}", flush=True)
+    require(launches["deform_bwd"] == 0, "the branch-B step ran kernel B's backward")
+    require(launches["deform"] == 1 and launches["knn"] == 1 and launches["blend_fwd_ckpt"] == 1
+            and launches["blend_bwd"] == 1 and launches["blend_bwd_ckpt"] == 0,
+            f"the branch-B step's launches {launches}")
+    again = step(*step_args)
+    pairs = list(zip(tree_leaves(first), tree_leaves(again)))
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in pairs)
+    print(f"[pbr] the same step twice: {len(pairs)} leaves (state, light, metrics), "
+          f"bit-equal {same}", flush=True)
+    require(same, "the same branch-B step twice differs")
+    profile_calls(lambda: step(*step_args), PROFILE_FRAMES, "branch-B step")
+    label = f"branch-B step chkpnt{CLI_ITERS}"
+    report: dict = {}
+    (q, r), kw = seen["knn"]
+    check_kernel_a(label, q.detach(), r.detach(), 1, False, n_sm, report)
+    check_kernel_b(label, seen["deform_rows"][0], n_sm, report)
+    planar = "blend_rows_raw" in seen
+    (data, starts, counts, tile_base), kw = seen["blend_rows_raw" if planar else "blend_tiles_raw"]
+    require(kw.get("checkpoints") is True, f"{label}: no checkpoint mode")
+    check_kernel_c(f"{label} {'planar' if planar else 'tile-major'}", data, starts, counts,
+                   tile_base, dict(kw, planar=planar), pb, pbb, report=report, ckpt_report=True)
+    check_kernel_d(label, seen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"], report, pb,
+                   pbb, main=True)
+    return report
+
+
+def pbr_gpu_vs_cpu(dev):
+    """One branch-B step's loss, metrics and gradients (albedo, roughness,
+    light) on the card against the same step on the CPU, at phase 5's small
+    case (128^2, 1,000 Gaussians, LPIPS on)."""
+    import torch
+
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.pbr.light import prefilter_weight_set
+    from mygauhuman_torch.train.pbr import compute_knn3, create_pbr_state, make_pbr_train_step
+
+    cpu = torch.device("cpu")
+    cfg = RasterizerConfig(tile_capacity=1024, instance_capacity=4 * 1024)
+    scene = make_synthetic_scene(n_views=2, width=128, height=128, n_verts=1000,
+                                 capacity=1024, seed=1, raster_config=cfg, device=dev)
+    g = make_trainer(scene, cfg, dev)
+    opt = OptimizationConfig()
+    pbr, ltx = create_pbr_state(opt, device=dev)
+    c_lpips = LPIPS(device=cpu)
+    c_lpips.params = to_dev(g["lpips"].params, cpu)
+    step = make_pbr_train_step(scene.smpl_model, g["tx"], ltx, opt, cfg,
+                               bg=torch.zeros(3, device=dev), lpips_fn=g["lpips"])
+    c_step = make_pbr_train_step(to_dev(scene.smpl_model, cpu), g["tx"], ltx, opt, cfg,
+                                 bg=torch.zeros(3), lpips_fn=c_lpips)
+    knn3 = compute_knn3(g["ts"].gauss)
+    occ = torch.rand((1024, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    pw = prefilter_weight_set(32, dev)
+    args = (g["ts"], pbr, scene.batches[0], knn3, occ, pw, 0)
+    res_g = step.loss_and_grads(*args)
+    t0 = time.perf_counter()
+    res_c = c_step.loss_and_grads(*to_dev(args, cpu))
+    cpu_s = time.perf_counter() - t0
+    for k in ("loss", "l1", "ssim", "lpips_term", "brdf_tv", "entropy", "smooth", "lamb",
+              "env_tv", "psnr"):
+        a, c = float(res_g[1][k]), float(res_c[1][k])
+        require(abs(a - c) <= 1e-4 * abs(c) + 1e-6, f"GPU vs CPU branch-B step: {k} {a} vs {c}")
+    worst = {}
+    for name, a in res_g[2].items():
+        c = res_c[2][name]
+        err, scale = float((a.cpu() - c).abs().max()), float(c.abs().max())
+        worst[name] = err / (scale + 1e-30)
+        require(scale > 0 and err <= GRAD_RTOL * scale + 1e-8,
+                f"GPU vs CPU branch-B step: d_{name} err {err} (max {scale})")
+    print(f"[pbr] GPU vs CPU branch-B step at 128^2 (capacity 1,024, LPIPS on): loss "
+          f"{float(res_g[1]['loss']):.6f} vs {float(res_c[1]['loss']):.6f}; gradients "
+          + ", ".join(f"d_{k} {v:.3e}" for k, v in worst.items())
+          + f" of the leaf's max (tolerance {GRAD_RTOL}); CPU step {cpu_s:.1f} s", flush=True)
+
+
+def relight_checks(out_b, scene, dev, it):
+    """CUDA-event ms per relit frame (render + shading) beside the unlit
+    frame, on the replay branch as cli.render serves it, and the GPU shading
+    against the CPU shading of the same G-buffers."""
+    import torch
+
+    from mygauhuman_torch.cli import render as cli_render
+    from mygauhuman_torch.models.gaussians import compact_state
+    from mygauhuman_torch.models.io import load_ply
+    from mygauhuman_torch.render import render_frame
+    from mygauhuman_torch.train.checkpoint import load_eval_cache
+
+    state = compact_state(load_ply(str(out_b / f"point_cloud_{it}.ply"), device=dev))
+    cfg = scene.raster_config._replace(instance_capacity=4 * state.capacity)
+    cache = load_eval_cache(str(out_b / f"smpl_rot_{it}.npz"))
+    light, lut = cli_render.load_relight(str(out_b / f"envmap_{it}.npy"), dev)
+
+    def replay(v):
+        rows = cache[str(v)]
+        n = rows["transforms"].shape[0]
+        return {k: torch.cat([torch.as_tensor(rows[k], device=dev),
+                              torch.zeros((state.capacity - n,) + rows[k].shape[1:],
+                                          device=dev)]) for k in ("transforms", "translation")}
+
+    kws = [replay(v) for v in range(len(scene.batches))]
+
+    def frame(i, relit):
+        b = scene.batches[i % len(scene.batches)]
+        out = render_frame(state, b.camera, b.frame, scene.smpl_model,
+                           bg=torch.zeros(3, device=dev), active_sh_degree=3, config=cfg,
+                           **kws[i % len(kws)])
+        return cli_render.shade_gbuffers(out, b.camera, light, lut) if relit else out.render
+
+    ms = {}
+    with torch.no_grad():
+        for relit in (False, True, False, True):
+            ms.setdefault(relit, []).append(cuda_ms(lambda: [frame(i, relit)
+                                                             for i in range(RELIGHT_FRAMES)],
+                                                    reps=1, warmup=1) / RELIGHT_FRAMES)
+        b = scene.batches[0]
+        out = render_frame(state, b.camera, b.frame, scene.smpl_model,
+                           bg=torch.zeros(3, device=dev), active_sh_degree=3, config=cfg,
+                           **kws[0])
+        profile_calls(lambda: frame(0, False), PROFILE_FRAMES, "unlit replay frame")
+        profile_calls(lambda: frame(0, True), PROFILE_FRAMES, "relit replay frame")
+        gpu = cli_render.shade_gbuffers(out, b.camera, light, lut)
+        cpu = torch.device("cpu")
+        ref = cli_render.shade_gbuffers(to_dev(out, cpu), to_dev(b.camera, cpu),
+                                        to_dev(light, cpu), lut.cpu())
+    err = float((gpu.cpu() - ref).abs().max())
+    print(f"[relight] replay branch, {state.capacity} capacity: unlit "
+          f"{', '.join(f'{x:.3f}' for x in ms[False])} ms/frame, relit (render + shading) "
+          f"{', '.join(f'{x:.3f}' for x in ms[True])} ms/frame (CUDA events, "
+          f"{RELIGHT_FRAMES} frames each, alternating); GPU vs CPU shading of view 0's "
+          f"G-buffers max abs {err:.3e} (tolerance {SHADE_ATOL})", flush=True)
+    require(err <= SHADE_ATOL, f"GPU shading differs from the CPU shading by {err}")
+    return ms
+
+
+def pbr_phase(dev, n_sm):
+    """Branch B through the entry points: cli.train resumes phase 6's
+    chkpnt1200 for 300 branch-B iterations (4 bakes at capacity 32,768),
+    then the run's checks, a branch-B step's kernels and bits, kernel C
+    tile-major on a bake face, one camera's bake on the card against the CPU
+    (in a process of its own, beside the training), GPU vs CPU, and
+    cli.render --relight with its timing. Returns (launches per path,
+    report)."""
+    import multiprocessing
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    import mygauhuman_torch.ops.pallas_blend as pb
+    import mygauhuman_torch.ops.pallas_blend_bwd as pbb
+    import mygauhuman_torch.train.pbr as tpbr
+    from mygauhuman_torch.cli import render as cli_render
+    from mygauhuman_torch.cli import train as cli_train
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.occlusion import baking
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.ops.rasterize import rasterize
+    from mygauhuman_torch.pbr.light import export_envmap, prefilter_weight_set
+    from mygauhuman_torch.train.checkpoint import load_checkpoint, restore_checkpoint_like
+
+    end = CLI_ITERS + PBR_ITERS
+    synth = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
+             str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"])]
+    out_b = CLI_DIR / "pbr"
+    bake_in, bake_out = CLI_DIR / "bake_inputs.pt", CLI_DIR / "bake_cpu.pt"
+    ctx = multiprocessing.get_context("spawn")
+    worker = ctx.Process(target=cpu_bake_worker,
+                         args=(str(bake_in), str(bake_out), CPU_BAKE_THREADS))
+    bakes, log, face = [], [], {}
+
+    def timed_bake(orig):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            before = dict(cuda_lib.LAUNCHES)
+            t0 = time.perf_counter()
+            occ, oob, n_sweeps = orig(*args, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if not bakes:   # the first camera's bake is redone on the CPU, meanwhile
+                names = ("means", "cov6", "opacity", "normals", "alive")
+                torch.save({k: a.detach().cpu() for k, a in zip(names, args)}, bake_in)
+                worker.start()
+                face.update(first_occ=occ, first_args=args)
+            bakes.append(dict(seconds=sec, n_sweeps=n_sweeps, oob=oob, launches={
+                k: cuda_lib.LAUNCHES[k] - before[k] for k in before if cuda_lib.LAUNCHES[k]
+                - before[k]}, occupied=baking.count_occupied(args[0], args[4])))
+            return occ, oob, n_sweeps
+        return run
+
+    def logged_loop(orig):
+        def run(*args, callback=None, **kw):
+            def cb(it, ts, pbr, m):
+                log.append((it, m["loss"], m["psnr"]))
+                callback(it, ts, pbr, m)
+            return orig(*args, callback=cb, **kw)
+        return run
+
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with patched(baking, "bake_occlusion_full", timed_bake), \
+                patched(tpbr, "train_loop_pbr", logged_loop):
+            res = cli_train.main(synth + [
+                "--iterations", str(end), "--pbr_iteration", str(CLI_ITERS),
+                "--start_checkpoint", str(CLI_DIR / "train" / f"chkpnt{CLI_ITERS}"),
+                "--test_iterations", str(end), "--save_iterations", str(end),
+                "--skip_galleries", "--model_path", str(out_b), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pbr_launches = dict(cuda_lib.LAUNCHES)
+        rec = res["pbr"]
+        print(f"[pbr] cli.train branch B: iterations {res['first_iteration']}-"
+              f"{res['last_iteration']} in {rec['elapsed_s']:.3f} s "
+              f"({1e3 * rec['elapsed_s'] / PBR_ITERS:.3f} ms/iteration, the bakes, eval and "
+              f"save included; {wall:.3f} s wall for the command); launches {pbr_launches}",
+              flush=True)
+        for i, bk in enumerate(bakes):
+            print(f"[pbr] bake {i}: {bk['seconds']:.3f} s, {bk['occupied']} occupied cells, "
+                  f"n_sweeps {bk['n_sweeps']}, bake_out_of_budget {bk['oob']}, launches "
+                  f"{bk['launches']}", flush=True)
+        losses = torch.stack([x[1] for x in log]).cpu().numpy()
+        psnr = torch.stack([x[2] for x in log]).cpu().numpy()
+        bake_s = sum(b["seconds"] for b in bakes)
+        print(f"[pbr] {len(bakes)} bakes in {bake_s:.3f} s; the steps without them "
+              f"{1e3 * (rec['elapsed_s'] - bake_s) / PBR_ITERS:.3f} ms/iteration; relit "
+              f"training-view PSNR at {log[0][0]} {psnr[0]:.4f}, at {log[-1][0]} "
+              f"{psnr[-1]:.4f} (mean of the last 50 {psnr[-50:].mean():.4f}); loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}; test PSNR (unlit eval) at {end} "
+              f"{res['test_psnr']:.4f}", flush=True)
+        require((res["first_iteration"], res["last_iteration"]) == (CLI_ITERS + 1, end)
+                and len(log) == PBR_ITERS, "cli.train did not run the branch-B budget")
+        require(np.isfinite(losses).all(), "a non-finite branch-B loss")
+        require(len(bakes) == CLI_SCENE["views"] and all(b["oob"] == 0 for b in bakes)
+                and rec["bake_out_of_budget"] == 0, "a bake left Gaussians out of budget")
+        for name in ("knn", "deform", "blend_fwd", "blend_fwd_ckpt", "blend_fwd_tiles",
+                     "blend_bwd", "blend_bwd_sums", "blend_bwd_rows"):
+            require(pbr_launches[name] > 0, f"branch B: kernel {name} was not launched")
+        require(pbr_launches["deform_bwd"] == 0, "branch B ran kernel B's backward")
+        require(pbr_launches["blend_bwd_ckpt"] == 0, "branch B launched D1")
+        require(pbr_launches["blend_fwd_ckpt"] == pbr_launches["blend_bwd"] == PBR_ITERS,
+                f"{pbr_launches['blend_fwd_ckpt']} differentiated forwards and "
+                f"{pbr_launches['blend_bwd']} backward passes in {PBR_ITERS} iterations")
+
+        # the run against its start: geometry bit-equal, materials and light learned
+        ts, pbr_state = res["state"], res["pbr_state"]
+        start = restore_checkpoint_like(str(CLI_DIR / "train"), CLI_ITERS, ts)
+        geometry = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+        frozen = all(torch.equal(getattr(ts.gauss.params, f), getattr(start.gauss.params, f))
+                     for f in geometry) and torch.equal(ts.gauss.alive, start.gauss.alive) \
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves((ts.pose_refiner, ts.lbs_offset)),
+                tree_leaves((start.pose_refiner, start.lbs_offset))))
+        learned = {f: not torch.equal(getattr(ts.gauss.params, f), getattr(start.gauss.params, f))
+                   for f in ("albedo", "roughness")}
+        light_min = float(pbr_state.light["base"].min())
+        back = load_checkpoint(str(out_b), end, (ts, pbr_state))
+        saved = all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                       tree_leaves((ts, pbr_state)))
+                    if isinstance(a, torch.Tensor))
+        print(f"[pbr] geometry and MLPs bit-equal to chkpnt{CLI_ITERS} {frozen}; changed "
+              f"{learned}; light min {light_min:.4g}, max "
+              f"{float(pbr_state.light['base'].max()):.4g}; chkpnt{end} (state, light) loaded "
+              f"back bit-equal {saved}", flush=True)
+        require(frozen, "branch B moved the geometry")
+        require(all(learned.values()), f"branch B left a material unchanged: {learned}")
+        require(light_min >= 0.0, "a negative light texel")
+        require(saved, f"chkpnt{end} differs from the live state")
+
+        # kernel C tile-major on a bake face: of the first camera's densest
+        # cell, the face with the most instances, rendered as the sweep does
+        report: dict = {}
+        means, cov6, opac, _, alive = face["first_args"]
+        grid = baking.pc_to_grid(means, alive)
+        members = torch.bincount(grid.cell_of_point[alive], minlength=grid.occupied.numel())
+        cell = int(members.argmax())
+        cams = torch.as_tensor(baking.face_cameras(grid.centers[cell][None].cpu().numpy()),
+                               device=dev)
+        mask = alive & (grid.cell_of_point != cell)
+        calls = []
+        for f in range(6):
+            seen_f: dict = {}
+            with torch.no_grad(), capture(pb, "blend_tiles_raw", seen_f):
+                rasterize(means, cov6, opac, torch.zeros((means.shape[0], 1), device=dev),
+                          cams[0, f, 0], cams[0, f, 1], torch.zeros(1, device=dev), width=32,
+                          height=32, tan_fovx=1.0, tan_fovy=1.0,
+                          config=baking.DEFAULT_BAKE_CONFIG, alive=mask)
+            calls.append(seen_f["blend_tiles_raw"])
+        (data, starts, counts, tile_base), kw = max(calls, key=lambda c: int(c[0][2].sum()))
+        require(kw.get("checkpoints") is False and kw["n_tiles"] == 4 and kw["n_channels"] == 1,
+                f"unexpected bake face call {kw}")
+        check_kernel_c(f"bake face 32x32 tile-major (cell {cell}, {int(members[cell])} "
+                       f"Gaussians inside)", data, starts, counts, tile_base,
+                       dict(kw, planar=False), pb, pbb, report=report, name="blend_fwd_tiles")
+        report["blend_fwd_tiles"]["launches_per_bake"] = [
+            b["launches"].get("blend_fwd_tiles", 0) for b in bakes]
+
+        # a branch-B step on the loaded state
+        scene = cli_train.synthetic_scene(CLI_SCENE["views"], CLI_SCENE["size"],
+                                          CLI_SCENE["verts"], dev)
+        train = make_trainer(scene, scene.raster_config, dev)
+        ts0 = restore_checkpoint_like(str(CLI_DIR / "train"), CLI_ITERS, train["ts"])
+        opt = OptimizationConfig()
+        pbr0, ltx = tpbr.create_pbr_state(opt, device=dev)
+        step = tpbr.make_pbr_train_step(scene.smpl_model, train["tx"], ltx, opt,
+                                        scene.raster_config, bg=torch.zeros(3, device=dev),
+                                        lpips_fn=train["lpips"])
+        first_view = [0, 1, 2, 3].pop(np.random.RandomState(7).randint(4))
+        u8 = torch.round(face["first_occ"] * 255.0).to(torch.uint8)
+        with torch.no_grad():
+            env = export_envmap(pbr0.light, 16, 32).mean(dim=-1, keepdim=True)
+            occ_col = baking.occlusion_color(u8.float() * (1.0 / 255.0), env)
+        report.update(pbr_step_checks(
+            (ts0, pbr0, scene.batches[first_view], tpbr.compute_knn3(ts0.gauss), occ_col,
+             prefilter_weight_set(32, dev), min(CLI_ITERS // 1000, 3)), step, dev, n_sm, pb, pbb))
+        pbr_gpu_vs_cpu(dev)
+
+        # cli.render --relight with the run's light
+        cuda_lib.reset_launches()
+        m = cli_render.main(["--model_path", str(out_b), "--iteration", str(end)] + synth + [
+            "--use_replay_cache", "--relight", str(out_b / f"envmap_{end}.npy"),
+            "--device", "cuda"])
+        torch.cuda.synchronize()
+        relight_launches = dict(cuda_lib.LAUNCHES)
+        print(f"[relight] cli.render --relight envmap_{end}.npy: relight_oracle "
+              f"{m['relight_oracle']}, PSNR {m['psnr']:.4f} vs the relit ground truth, "
+              f"psnr_drift {m['psnr_drift']:.4f}, SSIM {m['ssim']:.4f}, ssim_drift "
+              f"{m['ssim_drift']:.4f}, lpips_rand {m['lpips_rand']:.4f}; fps_device "
+              f"{m['fps_device']:.2f} (unlit sweep); launches {relight_launches}", flush=True)
+        require(m["relight_oracle"] is True and np.isfinite([m["psnr"], m["psnr_drift"]]).all(),
+                "cli.render --relight gave no oracle or a non-finite PSNR")
+        require(relight_launches["blend_fwd"] > 0 and relight_launches["blend_fwd_ckpt"] == 0,
+                "cli.render --relight did not run kernel C, or wrote checkpoints")
+        relight_checks(out_b, scene, dev, end)
+
+        # the CPU bake of the first camera, against the card's
+        worker.join()
+        require(worker.exitcode == 0, f"the CPU bake process exited with {worker.exitcode}")
+        cpu_bake = torch.load(bake_out, weights_only=True)
+        gpu_occ = face["first_occ"].cpu()
+        diff = (torch.round(gpu_occ * 255.0).to(torch.int16)
+                - torch.round(cpu_bake["occ"] * 255.0).to(torch.int16)).abs()
+        ferr = (gpu_occ - cpu_bake["occ"]).abs()
+        print(f"[pbr] one camera's bake, card vs CPU: {int((diff > 0).sum())} of "
+              f"{diff.numel()} uint8 texels differ (max {int(diff.max())}), float visibility "
+              f"max abs {float(ferr.max()):.3e}, {int((ferr > RENDER_ATOL).sum())} texels beyond "
+              f"{RENDER_ATOL}; n_sweeps {cpu_bake['n_sweeps']} vs {bakes[0]['n_sweeps']}; the "
+              f"CPU bake took {cpu_bake['seconds']:.1f} s ({CPU_BAKE_THREADS} threads), the "
+              f"card's {bakes[0]['seconds']:.3f} s", flush=True)
+        require(int(diff.max()) <= BAKE_U8_STEP and cpu_bake["n_sweeps"] == bakes[0]["n_sweeps"],
+                "the card's bake differs from the CPU's by more than one uint8 step")
+    finally:
+        if worker.is_alive():
+            worker.terminate()
+            worker.join()
+    return {"cli_train_pbr": pbr_launches, "cli_render_relight": relight_launches}, report
+
+
 def main() -> None:
     import torch
 
@@ -1401,38 +1856,59 @@ def main() -> None:
     cli_launches, cli_report = cli_phase(dev, n_sm)
     print(f"[cli] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 7: results --------------------------------------------------
+    # ---- phase 7: branch B and relighting through the entry points ---------
+    t0 = time.perf_counter()
+    pbr_launches, pbr_report = pbr_phase(dev, n_sm)
+    print(f"[pbr] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 8: results --------------------------------------------------
     # time lost on the main paths, launches x (device ms - bound): the 4 + 4
     # serving frames of phase 3, the 60-iteration loop (kernels B and C: the
-    # loop at the training step's capture) and cli.train's 1,200 iterations
+    # loop at the training step's capture), cli.train's 1,200 iterations
     # (each kernel at the inputs of the step at chkpnt600, kernel C in its
-    # checkpoint mode)
+    # checkpoint mode) and its 300 branch-B iterations (each kernel at the
+    # inputs of a branch-B step at chkpnt1200, kernel C tile-major at a bake
+    # face)
+    # `blend_fwd` counts every kernel C launch and `blend_fwd_tiles` the
+    # tile-major ones; from here `blend_fwd` is the planar launches (the TPU
+    # row kernel's), so each row counts its own layout
+    for counts in (serving_launches, loop_launches, *cli_launches.values(),
+                   *pbr_launches.values()):
+        counts["blend_fwd"] -= counts["blend_fwd_tiles"]
     cli_train_launches = cli_launches.pop("cli_train")
+    pbr_train_launches = pbr_launches.pop("cli_train_pbr")
+
+    def lost_ms(entry, n):
+        return "n/a" if entry is None or entry["device_ms"] is None else \
+            f"{n * (entry['device_ms'] - entry['bound_ms']):.4f}"
+
     lost = []
-    for name, e in report.items():
-        loop_ms, loop_bound = e.get("loop_device_ms", e["device_ms"]), e.get("loop_bound_ms",
-                                                                              e["bound_ms"])
-        c = cli_report[name]
-        if None in (e["device_ms"], loop_ms, c["device_ms"]):
-            lost.append(f"{name} not measured")
-            continue
-        lost.append(f"{name} {serving_launches[name] * (e['device_ms'] - e['bound_ms']):.4f} / "
-                    f"{loop_launches[name] * (loop_ms - loop_bound):.4f} / "
-                    f"{cli_train_launches[name] * (c['device_ms'] - c['bound_ms']):.4f} "
-                    f"(launches {serving_launches[name]} / {loop_launches[name]} / "
-                    f"{cli_train_launches[name]})")
-    print("[lost] ms lost on the main paths from device time, serving / loop / cli.train: "
-          + "; ".join(lost), flush=True)
-    # this slice's main path is cli.train's 1,200 iterations: `launches` are
-    # its counts and every number is measured on the inputs of its step at
-    # chkpnt600; the other paths' counts beside them
-    paths = {"serving": serving_launches, "loop": loop_launches, **cli_launches}
+    for name in sorted(set(report) | set(pbr_report)):
+        e = report.get(name)
+        loop_e = e and dict(e, device_ms=e.get("loop_device_ms", e["device_ms"]),
+                            bound_ms=e.get("loop_bound_ms", e["bound_ms"]))
+        lost.append(f"{name} {lost_ms(e, serving_launches[name])} / "
+                    f"{lost_ms(loop_e, loop_launches[name])} / "
+                    f"{lost_ms(cli_report.get(name), cli_train_launches[name])} / "
+                    f"{lost_ms(pbr_report.get(name), pbr_train_launches[name])} (launches "
+                    f"{serving_launches[name]} / {loop_launches[name]} / "
+                    f"{cli_train_launches[name]} / {pbr_train_launches[name]})")
+    print("[lost] ms lost on the main paths from device time, serving / loop / cli.train / "
+          "branch B: " + "; ".join(lost), flush=True)
+    # this slice's main path is cli.train's 300 branch-B iterations: `launches`
+    # are its counts, and each kernel it runs is measured on the inputs of a
+    # branch-B step at chkpnt1200 (kernel C tile-major on a bake face); the
+    # kernel it does not run (B's backward) keeps cli.train's chkpnt600
+    # numbers; the other paths' counts beside them
+    paths = {"serving": serving_launches, "loop": loop_launches,
+             "cli_train": cli_train_launches, **cli_launches, **pbr_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: cli_report[n][k] for k in keys}, launches=cli_train_launches[n],
+    kernels = [dict({k: pbr_report.get(n, cli_report.get(n))[k] for k in keys},
+                    launches=pbr_train_launches[n],
                     launches_by_path={p: c[n] for p, c in paths.items()})
-               for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_bwd",
-                         "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
+               for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles",
+                         "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
     print(json.dumps({"kernels": kernels}))
     print(card_line())   # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

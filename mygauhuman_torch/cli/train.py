@@ -10,19 +10,25 @@ Usage:
 Flow parity (train.py:128-434): scene load -> Gaussian init from the SMPL
 cloud -> loss-branch-A optimization with densify/prune/opacity-reset
 schedules and SH-degree ramp -> periodic eval (L1/PSNR/SSIM/LPIPS, render
-galleries, the per-pose replay cache) -> checkpoint + PLY export. The
-output directory holds what the JAX package's CLI writes (`cfg_args.json`,
-`metrics.jsonl`, `point_cloud_<it>.ply`, `smpl_rot_<it>.npz`,
-`eval_<it>/`), with `chkpnt<it>/` in the port's torch.save format.
+galleries, the per-pose replay cache) -> checkpoint + PLY export; past
+`--pbr_iteration` (below `--iterations`), branch B: occlusion baked per
+camera, materials and a cubemap light learned (`train/pbr.py`), with
+`envmap_<it>.npy` (64 x 128 lat-long) beside each save for
+`cli.render --relight`. The output directory holds what the JAX package's
+CLI writes (`cfg_args.json`, `metrics.jsonl`, `point_cloud_<it>.ply`,
+`smpl_rot_<it>.npz`, `eval_<it>/`, `envmap_<it>.npy`), with `chkpnt<it>/`
+in the port's torch.save format (a branch-B save holds (TrainState,
+PbrState)).
 
 The parser is the reference's, plus `--device` (default cuda: without a
 card it raises; nothing falls back to the CPU). Features not ported yet
-raise NotImplementedError naming their ROADMAP Queue 1 item: the PBR phase
-(`--pbr_iteration` below `--iterations`, item 3), `--gui`, SMPL-X bodies
-and `.smc` sources (item 4), `--multichip` (item 5). Accepted as no-ops:
-`--precompile` (there is no XLA cache to warm: the command returns at once
-without training), `--scan_chunk` (the loop runs one step per call, with
-the same schedule), `--use_pallas` (the device picks the kernels).
+raise NotImplementedError naming their ROADMAP Queue 1 item: `--gui`,
+SMPL-X bodies and `.smc` sources (item 4), `--multichip` (item 5).
+Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
+command returns at once without training), `--scan_chunk` and
+`--occ_budget_mb` (the loops run one step per call, with the same
+schedule; the budget sized the JAX chunk program's occlusion buffer),
+`--use_pallas` (the device picks the kernels).
 
 Deliberate difference from the JAX CLI: on `--synthetic` the test split is
 every view (there: the first), so the replay cache covers every view that
@@ -54,8 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_iterations", type=int, nargs="+", default=[1200])
     p.add_argument("--save_iterations", type=int, nargs="+", default=[1200])
     p.add_argument("--pbr_iteration", type=int, default=30_000,
-                   help="below --iterations the PBR phase would run: not ported "
-                        "yet (raises)")
+                   help="branch B (PBR) runs from here to --iterations")
     p.add_argument("--use_kl_densify", action="store_true")
     # densify schedule (reference OptimizationParams,
     # arguments/__init__.py:91-96)
@@ -98,12 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multichip", action="store_true",
                    help="the tile-sharded multi-device step: not ported yet (raises)")
     p.add_argument("--bake_cells", type=int, default=128,
-                   help="PBR-phase occlusion bake window; read only by the PBR "
-                        "phase (not ported yet)")
+                   help="voxel cells per occlusion-bake sweep (branch B)")
     p.add_argument("--bake_single_sweep", action="store_true",
-                   help="PBR-phase bake option; read only by the PBR phase")
+                   help="bake one sweep of --bake_cells cells per camera; the rest "
+                        "keep visibility 1, counted as bake_out_of_budget")
     p.add_argument("--occ_budget_mb", type=float, default=1024.0,
-                   help="PBR-phase occlusion buffer budget; read only by the PBR phase")
+                   help="accepted, no effect: it sizes the JAX chunk program's "
+                        "occlusion buffer; the loop here runs one step per call")
     p.add_argument("--exchange_capacity", type=int, default=16384,
                    help="multichip exchange window; read only with --multichip")
     p.add_argument("--precompile", action="store_true",
@@ -125,11 +131,6 @@ def _is_smplx_source(smpl_type: str, source_path: str) -> bool:
 
 def refuse_unported(args) -> None:
     """NotImplementedError for a flag whose feature is not ported yet."""
-    if args.pbr_iteration < args.iterations:
-        raise NotImplementedError(
-            f"--pbr_iteration {args.pbr_iteration} below --iterations {args.iterations} "
-            "runs the PBR branch B, not ported to mygauhuman_torch yet (ROADMAP Queue 1 "
-            "item 3)")
     if args.gui:
         raise NotImplementedError(
             "--gui (the SIBR network viewer) is not ported to mygauhuman_torch yet "
@@ -174,7 +175,9 @@ def main(argv=None) -> dict:
     """Train; returns {elapsed_s, final_loss, test_psnr, out_dir} as the JAX
     CLI does, plus the run's record: first / last iteration, Gaussians alive
     and capacity at the end, the densify events' counters, the eval and save
-    phases' times, and the final TrainState (`state`)."""
+    phases' times, the final TrainState (`state`), and with branch B its
+    PbrState (`pbr_state`) and `pbr` {iterations, elapsed_s,
+    bake_out_of_budget} (else None)."""
     args = build_parser().parse_args(argv)
     refuse_unported(args)
 
@@ -399,13 +402,65 @@ def main(argv=None) -> dict:
                 save_ply(ts.gauss, os.path.join(out_dir, f"point_cloud_{it}.ply"))
                 save_eval_cache(os.path.join(out_dir, f"smpl_rot_{it}.npz"), eval_cache)
 
-    ts, metrics = train_loop(
-        ts, tx, step_fn, train_batches, cfg,
-        extent=extent, smpl_vertices=smpl_vertices,
-        max_sh_degree=args.sh_degree, seed=args.seed, callback=callback,
-        num_iterations=cfg.iterations,
-        start_iteration=min(start_iteration, cfg.iterations),
-    )
+    phase_a_iters = min(cfg.iterations, cfg.pbr_iteration)
+    metrics: dict = {}
+    if phase_a_iters > start_iteration:
+        ts, metrics = train_loop(
+            ts, tx, step_fn, train_batches, cfg,
+            extent=extent, smpl_vertices=smpl_vertices,
+            max_sh_degree=args.sh_degree, seed=args.seed, callback=callback,
+            num_iterations=phase_a_iters, start_iteration=start_iteration,
+        )
+
+    pbr_state, pbr_record = None, None
+    if cfg.iterations > cfg.pbr_iteration:
+        # branch B (train.py:294-363): bake occlusion per camera, learn the
+        # materials and the cubemap light
+        from mygauhuman_torch.pbr.light import export_envmap
+        from mygauhuman_torch.train.pbr import (
+            create_pbr_state,
+            make_pbr_train_step,
+            train_loop_pbr,
+        )
+
+        pbr_state, light_tx = create_pbr_state(cfg, device=dev)
+        pbr_step = make_pbr_train_step(smpl_model, tx, light_tx, cfg, raster_cfg, bg=bg,
+                                       lpips_fn=lpips_obj)
+
+        def pbr_callback(it, ts2, pbr2, m):
+            nonlocal last_psnr
+            seen["first"] = seen["first"] or it
+            seen["last"] = it
+            if it % 100 == 0 or it == 1:    # the phase-A cadence
+                logger.log(it, m, prefix="pbr")
+            if it in args.test_iterations:
+                with timer.phase("eval"):
+                    last_psnr = run_eval(it, ts2)
+            if it in args.save_iterations:
+                with timer.phase("save"):
+                    save_checkpoint(out_dir, it, (ts2, pbr2), Config(optim=cfg))
+                    save_ply(ts2.gauss, os.path.join(out_dir, f"point_cloud_{it}.ply"))
+                    save_eval_cache(os.path.join(out_dir, f"smpl_rot_{it}.npz"), eval_cache)
+                    # the learned light, for cli.render --relight
+                    with torch.no_grad():
+                        env = export_envmap(pbr2.light, 64, 128)
+                    np.save(os.path.join(out_dir, f"envmap_{it}.npy"), env.cpu().numpy())
+
+        pbr_start = max(start_iteration, phase_a_iters)
+        t_pbr = time.time()
+        ts, pbr_state, metrics = train_loop_pbr(
+            ts, pbr_state, pbr_step, train_batches, smpl_model, cfg,
+            start_iteration=pbr_start, num_iterations=cfg.iterations - pbr_start,
+            max_sh_degree=args.sh_degree, seed=args.seed, callback=pbr_callback,
+            bake_max_cells=args.bake_cells, bake_full_coverage=not args.bake_single_sweep)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        pbr_record = {"iterations": cfg.iterations - pbr_start,
+                      "elapsed_s": time.time() - t_pbr,
+                      "bake_out_of_budget": metrics.get("bake_out_of_budget", 0)}
+        print(f"branch B: {pbr_record['iterations']} iterations in "
+              f"{pbr_record['elapsed_s']:.1f}s (bake_out_of_budget "
+              f"{pbr_record['bake_out_of_budget']})")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     elapsed = time.time() - start
@@ -418,7 +473,8 @@ def main(argv=None) -> dict:
             "test_psnr": last_psnr, "out_dir": out_dir,
             "first_iteration": seen["first"], "last_iteration": seen["last"],
             "n_gaussians": n_alive, "capacity": ts.gauss.capacity,
-            "densify": seen["densify"], "phases": timer.summary(), "state": ts}
+            "densify": seen["densify"], "phases": timer.summary(), "state": ts,
+            "pbr_state": pbr_state, "pbr": pbr_record}
 
 
 if __name__ == "__main__":

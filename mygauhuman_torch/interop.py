@@ -17,7 +17,9 @@ from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
 from mygauhuman_torch.eval.lpips import LPIPSParams
 from mygauhuman_torch.models.gaussians import GaussianParams, GaussianState
 from mygauhuman_torch.models.smpl import SMPLModel, model_from_arrays
+from mygauhuman_torch.occlusion.volumes import IrradianceVolumes
 from mygauhuman_torch.train.optim import GAUSS_GROUPS, MLP_GROUPS, AdamState, TrainableParams
+from mygauhuman_torch.train.pbr import LightAdamState, PbrState
 from mygauhuman_torch.train.trainer import TrainState
 
 
@@ -100,6 +102,20 @@ def train_state(ts, device: str | torch.device = DEFAULT_DEVICE) -> TrainState:
                     mu=moments("mu"), nu=moments("nu"))
     return TrainState(gauss=gaussian_state(ts.gauss, dev), pose_refiner=params.pose_refiner,
                       lbs_offset=params.lbs_offset, opt_state=opt, step=int(np.asarray(ts.step)))
+
+
+def pbr_state(state, device: str | torch.device = DEFAULT_DEVICE) -> PbrState:
+    """PbrState from the JAX package's PbrState (numpy leaves): the light
+    dict, the irradiance volumes, and the light optimizer's Adam moments and
+    count (`opt_state[0]`, optax.adam's `scale_by_adam` state)."""
+    dev = resolve_device(device)
+    adam = state.opt_state[0]
+    return PbrState(
+        light=tensor_tree(dict(state.light), dev),
+        volumes=IrradianceVolumes(coefficients=tensor_tree(state.volumes.coefficients, dev),
+                                  aabb=tensor_tree(state.volumes.aabb, dev)),
+        opt_state=LightAdamState(count=int(np.asarray(adam.count)),
+                                 mu=tensor_tree(adam.mu, dev), nu=tensor_tree(adam.nu, dev)))
 
 
 def config(cfg) -> C.Config:

@@ -1,0 +1,229 @@
+"""Ambient-occlusion baking: per-voxel opacity cubemaps via the rasterizer
+(port of occlusion/baking.py; reference `baking.py:136-309`, `bake_set`).
+
+Voxelize the posed Gaussians into a res^3 occupancy grid; from each
+occupied cell center render six 32x32 opacity-only views (fov 90) of all
+Gaussians outside the cell; convert the opacity cubemap to a small lat-long
+visibility map; every Gaussian inherits its cell's map, masked by the normal
+hemisphere (dot(envdir, normal) > 0).
+
+The cells are ranked occupied-first (a stable sort, so the windows hold the
+JAX package's cells) and baked in windows of `max_cells` / `sweep_cells`
+ranks; `bake_occlusion_full` sweeps every occupied cell. Each face is one
+`rasterize` call under no_grad with the bake's `RasterizerConfig`; on CUDA
+tensors its blend is kernel C in tile-major mode (a 32-pixel face is not a
+whole number of the planar mode's 128-pixel rows). Cells of a window that
+are not occupied are not rendered: their maps are masked out.
+
+Deliberate difference from the JAX module: the sweep is a Python loop over
+the window's occupied cells (the JAX sweep maps over all `max_cells` cells
+inside one compiled program). One host sync per sweep reads which cells are
+occupied and their centers; the face cameras are built on the host.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mygauhuman_torch.data.camera import projection_from_fov
+from mygauhuman_torch.ops.rasterize import RasterizerConfig, rasterize
+from mygauhuman_torch.pbr.cubemap import dir_to_cube_uv, latlong_dirs
+
+
+class VoxelGrid(NamedTuple):
+    cell_of_point: torch.Tensor   # [N] int64 flat cell index
+    centers: torch.Tensor         # [res^3, 3] cell centers
+    occupied: torch.Tensor        # [res^3] bool
+
+
+def pc_to_grid(points: torch.Tensor, alive: torch.Tensor, res: int = 10) -> VoxelGrid:
+    """Voxelize points into a res^3 grid over the alive points' bounding box.
+
+    Parity: pc_to_grid (baking.py:104-134) — floor((p - min)/cell), clamped."""
+    a = alive[:, None]
+    lo = torch.where(a, points, torch.inf).min(dim=0).values
+    hi = torch.where(a, points, -torch.inf).max(dim=0).values
+    cell = (hi - lo) / res
+    idx = torch.clamp(torch.floor((points - lo) / torch.clamp(cell, min=1e-12)).long(),
+                      0, res - 1)
+    flat = idx[:, 0] * res * res + idx[:, 1] * res + idx[:, 2]
+    flat = torch.where(alive, flat, res ** 3 - 1)
+    r = torch.arange(res, device=points.device)
+    ijk = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
+    centers = lo[None, :] + (ijk + 0.5) * cell[None, :]
+    occupied = torch.zeros(res ** 3 + 1, dtype=torch.bool, device=points.device)
+    occupied[torch.where(alive, flat, res ** 3)] = True
+    return VoxelGrid(cell_of_point=flat, centers=centers, occupied=occupied[:res ** 3])
+
+
+def _face_camera_axes(face: int):
+    """c2w axes (right, down, forward) so the rendered image is the cubemap
+    face in the sampling convention of pbr/cubemap.py's cube_to_dir: right =
+    d(dir)/d(gx), down = d(dir)/d(gy), forward = dir(0, 0)."""
+    table = {  # numpy mirror of cube_to_dir
+        0: lambda gx, gy: np.array([1.0, -gy, -gx]),
+        1: lambda gx, gy: np.array([-1.0, -gy, gx]),
+        2: lambda gx, gy: np.array([gx, 1.0, gy]),
+        3: lambda gx, gy: np.array([gx, -1.0, -gy]),
+        4: lambda gx, gy: np.array([gx, -gy, 1.0]),
+        5: lambda gx, gy: np.array([-gx, -gy, -1.0]),
+    }
+    d = table[face]
+    fwd = d(0.0, 0.0)
+    right = d(1.0, 0.0) - fwd
+    down = d(0.0, 1.0) - fwd
+    return right, down, fwd
+
+
+def face_cameras(centers: np.ndarray) -> np.ndarray:
+    """[n, 6, 2, 4, 4] float32: (w2c, proj @ w2c) of the six fov-90 face
+    cameras at each center [n, 3], built as the JAX sweep builds them."""
+    proj = projection_from_fov(0.01, 100.0, math.pi / 2, math.pi / 2)
+    out = np.zeros((len(centers), 6, 2, 4, 4), np.float32)
+    for s in range(6):
+        R = np.stack([a.astype(np.float32) for a in _face_camera_axes(s)], axis=1)
+        for i, c in enumerate(np.asarray(centers, np.float32)):
+            w2c = np.zeros((4, 4), np.float32)
+            w2c[:3, :3] = R.T
+            w2c[:3, 3] = -(R.T @ c)
+            w2c[3, 3] = 1.0
+            out[i, s, 0] = w2c
+            out[i, s, 1] = proj @ w2c
+    return out
+
+
+def count_occupied(points: torch.Tensor, alive: torch.Tensor, grid_res: int = 10) -> int:
+    """Number of occupied voxels: the sweep count of `bake_occlusion_full`
+    (the reference's per-nonempty-cell loop bound, baking.py:145)."""
+    return int(pc_to_grid(points, alive, grid_res).occupied.sum())
+
+
+def rank_cells(occupied: torch.Tensor) -> torch.Tensor:
+    """Cell ids, occupied first, each group in id order (a stable sort, as
+    `jnp.argsort(~occupied)`)."""
+    return torch.argsort((~occupied).to(torch.int8), stable=True)
+
+
+def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, height: int,
+                width: int, grid_res: int, max_cells: int, face_res: int,
+                config: RasterizerConfig):
+    """Bake the cells ranked [offset, offset + max_cells) and merge their
+    visibility maps into `vis_carry` [cap, H, W, 1] (un-masked: `_finalize`
+    applies the hemisphere and alive masks once). Returns (vis, n_uncovered):
+    n_uncovered counts alive Gaussians whose cell ranks past the window end."""
+    dev = means3d.device
+    cap = means3d.shape[0]
+    grid = pc_to_grid(means3d, alive, grid_res)
+    res3 = grid_res ** 3
+    order = rank_cells(grid.occupied)
+    rank = torch.empty(res3, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(res3, device=dev)
+    off = max(min(int(offset), res3 - max_cells), 0)
+    cells = order[off:off + max_cells]
+    cell_live = grid.occupied[cells]
+
+    # the window slots to render, their cell ids and centers: one host sync
+    live = torch.nonzero(cell_live).reshape(-1)
+    live_cells = cells[live]
+    host = torch.cat([live[:, None].double(), live_cells[:, None].double(),
+                      grid.centers[live_cells].double()], dim=1).cpu().numpy()
+    cams = torch.as_tensor(face_cameras(host[:, 2:].astype(np.float32)), device=dev)
+
+    # nearest-neighbor latlong lookup (baking.py:290-298 filter "nearest")
+    face, gx, gy = dir_to_cube_uv(latlong_dirs(height, width, dev))
+    r = face_res
+    xi = torch.clamp(((gx + 1.0) * 0.5 * r).long(), 0, r - 1)
+    yi = torch.clamp(((gy + 1.0) * 0.5 * r).long(), 0, r - 1)
+
+    features = torch.zeros((cap, 1), dtype=torch.float32, device=dev)
+    bg = torch.zeros((1,), dtype=torch.float32, device=dev)
+    opacity_envs = torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for k, (slot, cell_id) in enumerate(host[:, :2].astype(np.int64).tolist()):
+            mask = alive & (grid.cell_of_point != cell_id)
+            faces = torch.stack([
+                rasterize(means3d, cov3d6, opacities, features, cams[k, s, 0], cams[k, s, 1],
+                          bg, width=r, height=r, tan_fovx=1.0, tan_fovy=1.0, config=config,
+                          alive=mask).alpha
+                for s in range(6)])
+            opacity_envs[slot] = faces[face, yi, xi]
+
+    # every gaussian in a window cell inherits its cell's map
+    g_rank = rank[grid.cell_of_point]
+    local = torch.clamp(g_rank - off, 0, max_cells - 1)
+    in_window = (g_rank >= off) & (g_rank < off + max_cells) & cell_live[local]
+    vis = torch.where(in_window[:, None, None, None], 1.0 - opacity_envs[local][..., None],
+                      vis_carry)
+    # alive Gaussians always map to occupied (low-ranked) cells, so anything
+    # ranking past the window end is still uncovered
+    n_uncovered = int((alive & (g_rank >= off + max_cells)).sum())
+    return vis, n_uncovered
+
+
+def _finalize(vis, world_normals, alive, height: int, width: int):
+    """Normal-hemisphere mask (dot_map, reference baking.py:232,307) and
+    alive mask, applied once after all sweeps."""
+    env_dirs = latlong_dirs(height, width, vis.device)
+    dot_mask = torch.einsum("hwc,nc->nhw", env_dirs, world_normals)[..., None] > 0
+    return torch.where(dot_mask, vis, torch.zeros_like(vis)) * alive[:, None, None, None]
+
+
+DEFAULT_BAKE_CONFIG = RasterizerConfig(tile_capacity=256, chunk_tiles=4,
+                                       max_tiles_per_gaussian=4)
+
+
+def bake_occlusion(means3d, cov3d6, opacities, world_normals, alive, *, height: int = 16,
+                   width: int = 32, grid_res: int = 10, max_cells: int = 128,
+                   face_res: int = 32, config: RasterizerConfig = DEFAULT_BAKE_CONFIG):
+    """Single-sweep bake: per-Gaussian [cap, H, W, 1] visibility (1 - occluder
+    opacity), masked by the normal hemisphere, and `out_of_budget`: alive
+    Gaussians whose voxel fell beyond the max_cells budget and kept full
+    visibility 1.0 (counted, never silent). `bake_occlusion_full` covers
+    every cell. Runs without grad (the reference bakes under no_grad,
+    baking.py:230)."""
+    max_cells = min(max_cells, grid_res ** 3)
+    cap = means3d.shape[0]
+    vis0 = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
+    with torch.no_grad():
+        vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis0, 0, height=height,
+                               width=width, grid_res=grid_res, max_cells=max_cells,
+                               face_res=face_res, config=config)
+        return _finalize(vis, world_normals, alive, height, width), oob
+
+
+def bake_occlusion_full(means3d, cov3d6, opacities, world_normals, alive, *, height: int = 16,
+                        width: int = 32, grid_res: int = 10, sweep_cells: int = 128,
+                        face_res: int = 32, config: RasterizerConfig = DEFAULT_BAKE_CONFIG):
+    """Full-coverage bake (reference parity: every occupied voxel gets an
+    opacity cubemap, baking.py:145-202): sweeps the ranked cell order in
+    `sweep_cells`-sized windows until every occupied cell is baked. Returns
+    (vis, out_of_budget, n_sweeps); out_of_budget is 0 by construction."""
+    sweep_cells = min(sweep_cells, grid_res ** 3)
+    cap = means3d.shape[0]
+    with torch.no_grad():
+        n_occ = count_occupied(means3d, alive, grid_res)
+        vis = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
+        oob = 0
+        n_sweeps = max(1, -(-n_occ // sweep_cells))
+        for s in range(n_sweeps):
+            vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis, s * sweep_cells,
+                                   height=height, width=width, grid_res=grid_res,
+                                   max_cells=sweep_cells, face_res=face_res, config=config)
+        return _finalize(vis, world_normals, alive, height, width), oob, n_sweeps
+
+
+def occlusion_color(occlusion: torch.Tensor, envmap: torch.Tensor | None = None) -> torch.Tensor:
+    """Reduce a per-Gaussian occlusion envmap [cap, H, W, 1] to the
+    3-channel color fed to the rasterizer's occlusion channels
+    (gaussian_renderer/__init__.py:152-165); `envmap` [H, W, 1 or 3] is a
+    grayscale light."""
+    if envmap is None:
+        s = occlusion.sum(dim=(1, 2))
+    else:
+        occ = torch.clamp(occlusion, 0.0, 1.0) * envmap[None]
+        s = torch.clamp(occ.sum(dim=(1, 2)), 0.0, 3.0)
+        s = torch.clamp(s.mean(dim=-1, keepdim=True), 0.0, 1.0)
+    return s.repeat(1, 3)

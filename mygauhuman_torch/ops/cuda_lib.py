@@ -15,8 +15,9 @@ after it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
 Kernel B counts its forward as `deform` and each backward pass as
 `deform_bwd` (one launch, two when the scalars' gradient is asked for).
-Kernel C counts every launch as `blend_fwd` and its checkpoint-mode
-launches (a differentiated forward) also as `blend_fwd_ckpt`. Kernel D is
+Kernel C counts every launch as `blend_fwd`, its checkpoint-mode launches
+(a differentiated forward) also as `blend_fwd_ckpt` and its tile-major
+launches also as `blend_fwd_tiles`. Kernel D is
 three launches, each with its own count (`blend_bwd_ckpt`, `blend_bwd_sums`,
 `blend_bwd_rows`); `blend_bwd` counts whole backward passes (D1s and D2
 launched, after D1 or after kernel C's checkpoint mode).
@@ -47,8 +48,8 @@ SOURCES = {
     "blend_bwd": ("blend_bwd.cu", []),
 }
 
-LAUNCHES = {name: 0 for name in (*SOURCES, "deform_bwd", "blend_fwd_ckpt", "blend_bwd_ckpt",
-                                  "blend_bwd_sums", "blend_bwd_rows")}
+LAUNCHES = {name: 0 for name in (*SOURCES, "deform_bwd", "blend_fwd_ckpt", "blend_fwd_tiles",
+                                  "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int

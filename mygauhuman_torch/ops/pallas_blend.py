@@ -303,6 +303,8 @@ def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
              torch.cuda.current_stream(data.device).cuda_stream)
     cuda_lib.check("blend_fwd", err)
     cuda_lib.LAUNCHES["blend_fwd"] += 1
+    if not planar:
+        cuda_lib.LAUNCHES["blend_fwd_tiles"] += 1
     if not checkpoints:
         return out
     cuda_lib.LAUNCHES["blend_fwd_ckpt"] += 1

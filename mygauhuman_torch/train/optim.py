@@ -86,6 +86,17 @@ def expon_lr(step: int, lr_init: float, lr_final: float, lr_delay_steps: int = 0
     return delay * log_lerp
 
 
+def adam_leaf(p, g, mu, nu, lr: float, count: int, eps: float):
+    """One Adam update of a leaf after `count` updates (this one included)
+    -> (new p, new mu, new nu)."""
+    mu = (1 - B1) * g + B1 * mu
+    nu = (1 - B2) * (g * g) + B2 * nu
+    bc1 = float(1 - np.float32(B1) ** count)     # float32, as optax's decay**count
+    bc2 = float(1 - np.float32(B2) ** count)
+    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+    return p + (-lr) * upd, mu, nu
+
+
 class Adam(NamedTuple):
     """The per-group optimizer (the LR table of gaussian_model.py:266-282)."""
 
@@ -114,30 +125,32 @@ class Adam(NamedTuple):
                          mu=zeros, nu=tree_map(torch.zeros_like, params))
 
     def _leaf(self, p, g, mu, nu, lr, count):
-        mu = (1 - B1) * g + B1 * mu
-        nu = (1 - B2) * (g * g) + B2 * nu
-        bc1 = float(1 - np.float32(B1) ** count)     # float32, as optax's decay**count
-        bc2 = float(1 - np.float32(B2) ** count)
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.cfg.adam_eps)
-        return p + (-lr) * upd, mu, nu
+        return adam_leaf(p, g, mu, nu, lr, count, self.cfg.adam_eps)
 
-    def step(self, params: TrainableParams, grads: TrainableParams,
-             state: AdamState) -> tuple[TrainableParams, AdamState]:
-        """One update of every group -> (new params, new state)."""
+    def step(self, params: TrainableParams, grads: TrainableParams, state: AdamState,
+             groups: tuple | None = None) -> tuple[TrainableParams, AdamState]:
+        """One update of every group, or of the named `groups` only (the
+        others keep their parameters, moments and count, and their gradients
+        are not read) -> (new params, new state)."""
         count = dict(state.count)
         new_p, new_mu, new_nu = {}, {}, {}
         for field, group in GAUSS_GROUPS.items():
+            p, mu, nu = (getattr(t.gaussians, field) for t in (params, state.mu, state.nu))
+            if groups is not None and group not in groups:
+                new_p[field], new_mu[field], new_nu[field] = p, mu, nu
+                continue
             lr = self.lr(group, count[group])
             count[group] += 1
             new_p[field], new_mu[field], new_nu[field] = self._leaf(
-                getattr(params.gaussians, field), getattr(grads.gaussians, field),
-                getattr(state.mu.gaussians, field), getattr(state.nu.gaussians, field),
-                lr, count[group])
+                p, getattr(grads.gaussians, field), mu, nu, lr, count[group])
         out = {"gaussians": tuple(GaussianParams(**d) for d in (new_p, new_mu, new_nu))}
         for field, group in MLP_GROUPS.items():
+            tree = getattr(params, field)
+            if groups is not None and group not in groups:
+                out[field] = (tree, getattr(state.mu, field), getattr(state.nu, field))
+                continue
             lr = self.lr(group, count[group])
             count[group] += 1
-            tree = getattr(params, field)
             leaves = []
             tree_map(lambda p, g, m, v: leaves.append(self._leaf(p, g, m, v, lr, count[group])),
                      tree, getattr(grads, field), getattr(state.mu, field),

@@ -161,12 +161,10 @@ def test_train_on_zju_disk_fixture(tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "pbr": (train_main, ["--iterations", "10", "--pbr_iteration", "5"], "item 3"),
     "gui": (train_main, ["--gui"], "item 4"),
     "smplx": (train_main, ["--smpl_type", "smplx"], "item 4"),
     "smc": (train_main, ["-s", "subject.smc"], "item 4"),
     "multichip": (train_main, ["--multichip"], "item 5"),
-    "relight": (render_main, ["--model_path", "x", "--relight", "env.npy"], "item 3"),
     "render_smplx": (render_main, ["--model_path", "x", "-s", "data/zju/x",
                                    "--smpl_type", "smplx"], "item 4"),
 }

@@ -27,6 +27,9 @@ version on the same checkpoints, per component as kernel D. Kernel C's
 checkpoint mode (a differentiated forward) computes D1's serial product in
 D1's order, so its checkpoints are held to D1's bit for bit, to the plain
 ones as D1's are, and the backward of D1s and D2 on them as kernel D.
+Kernel C tile-major at the occlusion bake's shapes (a 32 x 32 face, one
+channel, tile capacity 256) is held as at the other shapes, and the bake's
+rasterize on the card to the CPU's (alpha within 1e-4).
 """
 import numpy as np
 import pytest
@@ -522,3 +525,60 @@ def test_differentiated_forward_writes_checkpoints_and_backward_skips_d1(cuda):
     with torch.no_grad(), pytest.raises(RuntimeError, match="does not require grad"):
         rasterize_grads(cuda)      # the forward runs, then there is no graph
     assert cuda_lib.LAUNCHES["blend_fwd"] == 1 and cuda_lib.LAUNCHES["blend_fwd_ckpt"] == 0
+
+
+def bake_face_inputs(device, n=16000, seed=9):
+    """One cubemap face of the occlusion bake: a seeded body-sized cloud
+    seen from a cell center inside it by the bake's fov-90 face camera
+    (32 x 32, 1 zero channel, tile capacity 256, 4 tiles per Gaussian) ->
+    (instance data, kwargs, rasterize arguments)."""
+    from mygauhuman_torch.occlusion.baking import DEFAULT_BAKE_CONFIG, face_cameras
+
+    rng = np.random.RandomState(seed)
+    xyz = (rng.randn(n, 3) * np.array([0.25, 0.5, 0.15])).astype(np.float32)
+    means = torch.as_tensor(xyz, device=device)
+    scales = torch.as_tensor(np.exp(rng.randn(n, 3) * 0.3 - 3.5).astype(np.float32),
+                             device=device)
+    quats = torch.as_tensor(rng.randn(n, 4).astype(np.float32), device=device)
+    cov6 = covariance6_from_scaling_rotation(scales, quats)
+    opac = torch.as_tensor((rng.rand(n) * 0.6 + 0.35).astype(np.float32), device=device)
+    cams = torch.as_tensor(face_cameras(np.array([[0.02, 0.1, 0.03]], np.float32)),
+                           device=device)
+    w2c, full = cams[0, 4, 0], cams[0, 4, 1]
+    cfg = DEFAULT_BAKE_CONFIG
+    p = preprocess(means, cov6, w2c, full, 32, 32, 1.0, 1.0)
+    bins = bin_gaussians(p.means2d, p.radii, p.depths, p.visible, width=32, height=32,
+                         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
+                         tile_capacity=cfg.tile_capacity)
+    feats = torch.zeros((n, 1), device=device)
+    inst = pb.build_instance_data(bins.sorted_rank, bins.starts,
+                                  torch.clamp(bins.counts, max=cfg.tile_capacity), p.means2d,
+                                  p.conics, opac, p.depths, feats, order=bins.order)
+    assert not pb.row_mode_supported(4, 2, 16, 16)     # a bake face is tile-major
+    raster = (means, cov6, opac, feats, w2c, full, torch.zeros(1, device=device))
+    return inst, dict(n_tiles=4, tiles_x=2, n_channels=1), dict(args=raster, config=cfg)
+
+
+def test_blend_kernel_tile_major_at_bake_faces(cuda):
+    """Kernel C tile-major at the bake's shapes against its plain version
+    (1e-4; depth row 1e-3), and the bake's rasterize on the card against
+    the same rasterize on the CPU (alpha within 1e-4)."""
+    inst, kw, r = bake_face_inputs(cuda)
+    assert int(inst.counts.max()) == 256         # the bake's tile capacity is reached
+    got = pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, 0, **kw)
+    want = pb.blend_instances_plain(inst.data, inst.starts, inst.counts, 0, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().movedim(1, 0).reshape(4, -1)
+    assert float(torch.cat([err[:2], err[3:]]).max()) <= 1e-4
+    assert float(err[2].max()) <= 1e-3
+    assert float(want[:, 1].max()) > 0.5         # the alpha row sees occluders
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        alpha = rasterize(*r["args"], width=32, height=32, tan_fovx=1.0, tan_fovy=1.0,
+                          config=r["config"]).alpha
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["blend_fwd_tiles"] == cuda_lib.LAUNCHES["blend_fwd"] == 1
+    with torch.no_grad():
+        ref = rasterize(*(a.cpu() for a in r["args"]), width=32, height=32, tan_fovx=1.0,
+                        tan_fovy=1.0, config=r["config"]).alpha
+    assert float((alpha.cpu() - ref).abs().max()) <= 1e-4

@@ -1,0 +1,219 @@
+"""Port vs JAX package: occlusion — SH volumes and the ambient-occlusion bake
+(mygauhuman_torch/occlusion/).
+
+Tolerances, each stated where it is used:
+  * SH bases, interpolation, reconstruction and the volumes: 1e-5 (float32,
+    the same formulas); their gradients within 1e-4 of the largest
+    |jax.grad|;
+  * the voxel grid: cell indices, occupancy and the cell ranking exact,
+    centers 1e-6;
+  * the bake's visibility before quantizing: 1e-5 (each face is one
+    rasterize through the spec blend on both sides), the out-of-budget count
+    and the sweep count exact.
+Sizes: 300 alive Gaussians at capacity 320, bake grid_res 3-4, face_res 16,
+latlong 8 x 16.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mygauhuman_tpu.occlusion import baking as JBK
+from mygauhuman_tpu.occlusion import volumes as JV
+from mygauhuman_tpu.ops.rasterize import RasterizerConfig as JRasterizerConfig
+from mygauhuman_tpu.utils.transforms import covariance_from_scaling_rotation, strip_symmetric
+from mygauhuman_torch.occlusion import baking as TBK
+from mygauhuman_torch.occlusion import volumes as TV
+from mygauhuman_torch.ops.rasterize import RasterizerConfig
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+GRAD_RTOL = 1e-4
+
+
+def t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def close(got, want, atol=ATOL, msg=""):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=atol, err_msg=msg)
+
+
+def unit(rng, n):
+    d = rng.randn(n, 3).astype(np.float32)
+    return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+# ---- SH volumes ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_sh_components_match_jax(degree):
+    d = unit(np.random.RandomState(degree), 200)
+    close(TV.sh_components(degree, t(d)), JV.sh_components(degree, jnp.asarray(d)))
+
+
+def test_envmap_from_sh_and_dilate_match_jax():
+    rng = np.random.RandomState(1)
+    coeffs = rng.randn(2, 9, 3).astype(np.float32)
+    dirs = unit(rng, 8 * 16).reshape(8, 16, 3)
+    close(TV.reconstruct_envmap_from_sh(t(coeffs), t(dirs)),
+          JV.reconstruct_envmap_from_sh(jnp.asarray(coeffs), jnp.asarray(dirs)))
+    ids = np.where(rng.rand(5, 5, 5) > 0.7, rng.randint(0, 50, (5, 5, 5)), -1).astype(np.int32)
+    for it in (1, 2):
+        np.testing.assert_array_equal(TV.dilate_occlusion_ids(t(ids), it).numpy(),
+                                      np.asarray(JV.dilate_occlusion_ids(jnp.asarray(ids), it)))
+
+
+def test_trilinear_interpolation_and_gradients_match_jax():
+    rng = np.random.RandomState(2)
+    grid = rng.randn(5, 5, 5, 4, 2).astype(np.float32)
+    aabb = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    pts = (rng.rand(60, 3) * 2.4 - 1.2).astype(np.float32)     # some outside the box
+    close(TV.trilinear_interpolate(t(grid), t(aabb), t(pts)),
+          JV.trilinear_interpolate(jnp.asarray(grid), jnp.asarray(aabb), jnp.asarray(pts)))
+    cot = rng.randn(60, 4, 2).astype(np.float32)
+    jg = jax.grad(lambda g, p: jnp.sum(JV.trilinear_interpolate(g, jnp.asarray(aabb), p) * cot),
+                  argnums=(0, 1))(jnp.asarray(grid), jnp.asarray(pts))
+    g_t = t(grid).requires_grad_(True)
+    p_t = t(pts).requires_grad_(True)
+    tg = torch.autograd.grad((TV.trilinear_interpolate(g_t, t(aabb), p_t) * t(cot)).sum(),
+                             (g_t, p_t))
+    for name, a, b in zip(("grid", "points"), tg, jg):
+        close(a, b, GRAD_RTOL * float(np.abs(np.asarray(b)).max()), name)
+
+
+def test_sparse_interpolation_and_recon_match_jax():
+    rng = np.random.RandomState(3)
+    res = 4
+    ids = np.where(rng.rand(res, res, res) > 0.3, np.arange(res ** 3).reshape(res, res, res),
+                   -1).astype(np.int32)
+    coeffs = (rng.rand(res ** 3, 16, 1) * 0.6).astype(np.float32)
+    aabb = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    pts = (rng.rand(40, 3) * 1.8 - 0.9).astype(np.float32)
+    nrm = unit(rng, 40)
+    args_j = [jnp.asarray(a) for a in (coeffs, ids, aabb, pts)]
+    args_t = [t(a) for a in (coeffs, ids, aabb, pts)]
+    close(TV.sparse_interpolate_coefficients(*args_t),
+          JV.sparse_interpolate_coefficients(*args_j))
+    rough = rng.rand(40, 1).astype(np.float32)
+    c = rng.randn(40, 16, 1).astype(np.float32)
+    close(TV.sh_reconstruction(t(c), t(nrm), t(rough), 64),
+          JV.sh_reconstruction(jnp.asarray(c), jnp.asarray(nrm), jnp.asarray(rough), 64))
+    close(TV.recon_occlusion(t(pts), t(nrm), t(coeffs), t(ids), t(aabb), 1.0, 64),
+          JV.recon_occlusion(jnp.asarray(pts), jnp.asarray(nrm), jnp.asarray(coeffs),
+                             jnp.asarray(ids), jnp.asarray(aabb), 1.0, 64))
+
+
+def test_irradiance_volumes_match_jax():
+    rng = np.random.RandomState(4)
+    aabb = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
+    tv = TV.init_irradiance_volumes(aabb, grid_res=6, device="cpu")
+    jv = JV.init_irradiance_volumes(aabb, grid_res=6)
+    close(tv.coefficients, jv.coefficients, 0)
+    close(tv.aabb, jv.aabb, 0)
+    coeffs = (rng.rand(6, 6, 6, 9, 1) + 0.2).astype(np.float32)
+    pts = (rng.rand(30, 3) * 2 - 1).astype(np.float32)
+    nrm = unit(rng, 30)
+    jq = lambda c: JV.query_irradiance(jv._replace(coefficients=c), jnp.asarray(pts),  # noqa: E731
+                                       jnp.asarray(nrm))
+    c_t = t(coeffs).requires_grad_(True)
+    got = TV.query_irradiance(tv._replace(coefficients=c_t), t(pts), t(nrm))
+    close(got, jq(jnp.asarray(coeffs)))
+    jg = jax.grad(lambda c: jnp.sum(jq(c)))(jnp.asarray(coeffs))
+    (tg,) = torch.autograd.grad(got.sum(), c_t)
+    close(tg, jg, GRAD_RTOL * float(np.abs(np.asarray(jg)).max()))
+
+
+# ---- voxel grid and bake --------------------------------------------------------------
+
+def _cloud(seed=5, n=300, cap=320):
+    """A seeded cloud of two clusters (a body and an occluding slab above
+    it) with 20 dead slots: world positions, covariances, opacities,
+    normals, alive."""
+    rng = np.random.RandomState(seed)
+    body = rng.randn(n - 60, 3) * np.array([0.25, 0.45, 0.2])
+    slab = rng.randn(60, 3) * np.array([0.3, 0.05, 0.3]) + np.array([0.0, 0.8, 0.0])
+    pts = np.concatenate([body, slab, rng.randn(cap - n, 3) * 5.0]).astype(np.float32)
+    scales = (rng.rand(cap, 3) * 0.06 + 0.03).astype(np.float32)
+    quats = rng.randn(cap, 4).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    cov6 = np.asarray(strip_symmetric(covariance_from_scaling_rotation(
+        jnp.asarray(scales), jnp.asarray(quats))))
+    opac = (rng.rand(cap) * 0.6 + 0.35).astype(np.float32)
+    alive = np.arange(cap) < n
+    return pts, cov6, opac, unit(rng, cap), alive
+
+
+def test_voxel_grid_and_cell_ranking_match_jax():
+    pts, _, _, _, alive = _cloud()
+    for res in (3, 4, 10):
+        jg = JBK.pc_to_grid(jnp.asarray(pts), jnp.asarray(alive), res)
+        tg = TBK.pc_to_grid(t(pts), t(alive), res)
+        np.testing.assert_array_equal(tg.cell_of_point.numpy(), np.asarray(jg.cell_of_point))
+        np.testing.assert_array_equal(tg.occupied.numpy(), np.asarray(jg.occupied))
+        close(tg.centers, jg.centers, 1e-6)
+        np.testing.assert_array_equal(TBK.rank_cells(tg.occupied).numpy(),
+                                      np.asarray(jnp.argsort(~jg.occupied)))
+        assert TBK.count_occupied(t(pts), t(alive), res) == int(
+            JBK.count_occupied(jnp.asarray(pts), jnp.asarray(alive), res))
+
+
+def test_face_cameras_match_the_jax_sweep():
+    """The w2c of each face is the JAX sweep's R_c2w^T | -R_c2w^T c."""
+    c = np.array([0.3, -0.2, 0.7], np.float32)
+    cams = TBK.face_cameras(c[None])
+    for s in range(6):
+        right, down, fwd = JBK._face_camera_axes(s)
+        R = np.stack([right, down, fwd], axis=1).astype(np.float32)
+        np.testing.assert_array_equal(cams[0, s, 0, :3, :3], R.T)
+        np.testing.assert_allclose(cams[0, s, 0, :3, 3], -(R.T @ c), rtol=0, atol=1e-7)
+
+
+BAKE_KW = dict(height=8, width=16, face_res=16)
+JCFG = JRasterizerConfig(tile_capacity=256, chunk_tiles=4, max_tiles_per_gaussian=4)
+TCFG = RasterizerConfig(tile_capacity=256, chunk_tiles=4, max_tiles_per_gaussian=4)
+
+
+@pytest.mark.parametrize("grid_res,max_cells", [(3, 27), (4, 10)],
+                         ids=["every_cell", "starved_budget"])
+def test_bake_occlusion_matches_jax(grid_res, max_cells):
+    cloud = _cloud()
+    want, want_oob = JBK.bake_occlusion(*[jnp.asarray(a) for a in cloud], grid_res=grid_res,
+                                        max_cells=max_cells, config=JCFG, **BAKE_KW)
+    got, got_oob = TBK.bake_occlusion(*[t(a) for a in cloud], grid_res=grid_res,
+                                      max_cells=max_cells, config=TCFG, **BAKE_KW)
+    assert got_oob == int(want_oob)
+    assert (got_oob > 0) == (max_cells < TBK.count_occupied(t(cloud[0]), t(cloud[4]), grid_res))
+    close(got, want)
+    # quantized as train_loop_pbr caches it (round half to even on both sides)
+    q_t = torch.round(got * 255.0).to(torch.uint8).numpy()
+    q_j = np.asarray(jnp.round(want * 255.0).astype(jnp.uint8))
+    assert int((q_t != q_j).sum()) <= 2, int((q_t != q_j).sum())
+    if got_oob == 0:   # the body under the slab sees less looking up (+y)
+        assert float(got[:240, 0:2].mean()) < float(got[:240].mean())
+
+
+def test_bake_occlusion_full_matches_jax():
+    cloud = _cloud(6)
+    want, want_oob, want_sweeps = JBK.bake_occlusion_full(
+        *[jnp.asarray(a) for a in cloud], grid_res=4, sweep_cells=5, config=JCFG, **BAKE_KW)
+    got, got_oob, got_sweeps = TBK.bake_occlusion_full(
+        *[t(a) for a in cloud], grid_res=4, sweep_cells=5, config=TCFG, **BAKE_KW)
+    assert got_sweeps == want_sweeps > 1
+    assert got_oob == int(want_oob) == 0
+    close(got, want)
+    # the sweeps bake what one window over every cell bakes
+    one, one_oob = TBK.bake_occlusion(*[t(a) for a in cloud], grid_res=4, max_cells=64,
+                                      config=TCFG, **BAKE_KW)
+    assert one_oob == 0 and torch.equal(one, got)
+
+
+def test_occlusion_color_matches_jax():
+    rng = np.random.RandomState(7)
+    occ = rng.rand(20, 8, 16, 1).astype(np.float32)
+    env = (rng.rand(8, 16, 1) * 0.02).astype(np.float32)
+    close(TBK.occlusion_color(t(occ)), JBK.occlusion_color(jnp.asarray(occ)), 1e-4)
+    close(TBK.occlusion_color(t(occ), t(env)),
+          JBK.occlusion_color(jnp.asarray(occ), jnp.asarray(env)))
