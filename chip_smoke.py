@@ -75,12 +75,32 @@ Phases, each of which must pass (any failure exits non-zero):
      the unlit one, GPU vs CPU shading within 1e-5; the first camera's bake
      redone on the CPU in a process of its own while the card trains, its
      uint8 maps within one step of the card's;
-  8. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line (`launches`: the branch-B run's, and every number
-     measured on the inputs of its step at chkpnt1200, kernel C tile-major
-     on a bake face, B's backward on cli.train's step at chkpnt600; the other
-     paths' launches in `launches_by_path`), the card line, and as the last
-     line {"ok": true, "device": {...}}.
+  8. the 55-joint SMPL-X body on a DNA-Rendering capture through the entry
+     points, under build/cli_run/dna/: a capture written for the port's DNA
+     reader (6 Camera_5mp cameras x 4 frames at the rig's 2448x2048, ground
+     truth rendered by render_frame from a seeded Gaussian state on the
+     synthetic SMPL-X body at 10,475 vertices; an .smc file with h5py where
+     it is installed, else the port's SMCReader accessors over the same
+     arrays in memory) and its SMPL-X npz; `cli.train --smpl_type smplx` for
+     600 iterations (frames 1224x1024, kernel C tile-major in checkpoint
+     mode in the step; saves at 300 and 600, eval at 600): wall time, ms per
+     iteration, Gaussians, launches (no planar blend, no D1, one kernel B
+     backward per iteration), the overflow counters of each logged step,
+     test PSNR; every kernel against its plain version on the inputs of the
+     CLI's own step at chkpnt600 (A at the state's capacity x 10,475 refs,
+     B forward and backward bit-equal, C tile-major with its checkpoints
+     against D1's, D1s + D2), the step twice bit-equal and its profile; a
+     branch-A step on a 128^2 SMPL-X scene (1,000 Gaussians) on the card
+     against the CPU; `cli.render` on both branches (the replay cache
+     bit-equal to the eval's deform transforms, the replay image bit-equal
+     to a replay of them) and `cli.metrics` (within 1e-4 of the same metric
+     in memory);
+  9. each kernel's time lost on the main paths from its device time, a
+     `kernels` JSON line (`launches`: the SMPL-X run's, and every number
+     measured on the inputs of its step at chkpnt600, the planar kernel C
+     (not on that path) on a branch-B step at chkpnt1200; the other paths'
+     launches in `launches_by_path`), the card line, and as the last line
+     {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -88,6 +108,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -130,6 +151,14 @@ SHADE_ATOL = 1e-5          # GPU vs CPU shading of the same G-buffers
 BAKE_U8_STEP = 1           # GPU vs CPU bake of one camera: uint8 maps differ by at most 1
 RELIGHT_FRAMES = 32        # CUDA-event frames per relit / unlit timing
 CPU_BAKE_THREADS = 6       # the CPU bake's process, beside the card's own host thread
+DNA_DIR = CLI_DIR / "dna"
+# the DNA-Rendering capture: the 5 MP rig's frame size (the reader halves it
+# to 1224 x 1024), the real SMPL-X vertex count, 6 cameras x 4 frames
+DNA = dict(cams=6, frames=4, width=2448, height=2048, verts=10475, dist=3.0, seed=0,
+           gt_scale=0.006)
+DNA_ITERS = 600            # cut from the 1,200-iteration budget for the script's time
+DNA_MID = 300              # the run's other save
+DNA_SMALL = dict(size=128, verts=1000)    # its GPU vs CPU step
 # each kernel's own CUDA kernels, by name, for its device time
 KERNEL_KEYS = {
     "knn": ("knn_kernel",),
@@ -274,9 +303,9 @@ def bound(ops, nbytes):
 
 
 def make_trainer(scene, cfg, dev, lpips=True):
-    """A fresh training state on `scene` (init state, seeded MLPs) and its
-    train step with the default OptimizationConfig, LPIPS on, cropped to
-    the scene's bound masks."""
+    """A fresh training state on `scene` (init state, seeded MLPs sized to
+    the body's joints) and its train step with the default
+    OptimizationConfig, LPIPS on, cropped to the scene's bound masks."""
     import torch
 
     from mygauhuman_torch.config import OptimizationConfig
@@ -286,8 +315,10 @@ def make_trainer(scene, cfg, dev, lpips=True):
 
     gen = torch.Generator().manual_seed(0)
     opt = OptimizationConfig()
-    ts, tx = TT.create_train_state(opt, scene.init_state, init_pose_refiner(gen, device=dev),
-                                   init_lbs_offset(gen, device=dev))
+    joints = scene.smpl_model.j_regressor.shape[0]
+    ts, tx = TT.create_train_state(
+        opt, scene.init_state, init_pose_refiner(gen, total_bones=joints, device=dev),
+        init_lbs_offset(gen, total_bones=joints, device=dev))
     lp = LPIPS(device=dev) if lpips else None
     crop = TT.scene_lpips_crop([b.bound_mask for b in scene.batches])
     step = TT.make_train_step(scene.smpl_model, tx, opt, cfg, bg=torch.zeros(3, device=dev),
@@ -693,21 +724,29 @@ def check_kernel_b_bwd(call, report, label="training step"):
         device_ms=dms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def train_gpu_vs_cpu(dev):
+def small_scene_config():
+    """The GPU vs CPU steps' raster config (capacity 1,024)."""
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+
+    return RasterizerConfig(tile_capacity=1024, instance_capacity=4 * 1024)
+
+
+def train_gpu_vs_cpu(dev, scene=None, label="128^2"):
     """One train step's loss, metrics and every gradient leaf on the card
-    against the same step on the CPU (plain path), same inputs."""
+    against the same step on the CPU (plain path), same inputs: on `scene`,
+    by default the 24-joint synthetic scene at 128^2 (1,000 Gaussians)."""
     import torch
 
     from mygauhuman_torch.data.synthetic import make_synthetic_scene
     from mygauhuman_torch.eval.lpips import LPIPS
-    from mygauhuman_torch.ops.rasterize import RasterizerConfig
     from mygauhuman_torch.train import trainer as TT
     from mygauhuman_torch.train.optim import tree_leaves
 
     cpu = torch.device("cpu")
-    cfg = RasterizerConfig(tile_capacity=1024, instance_capacity=4 * 1024)
-    scene = make_synthetic_scene(n_views=2, width=128, height=128, n_verts=1000,
-                                 capacity=1024, seed=1, raster_config=cfg, device=dev)
+    cfg = small_scene_config()
+    if scene is None:
+        scene = make_synthetic_scene(n_views=2, width=128, height=128, n_verts=1000,
+                                     capacity=1024, seed=1, raster_config=cfg, device=dev)
     g = make_trainer(scene, cfg, dev)
     c_lpips = LPIPS(device=cpu)
     c_lpips.params = to_dev(g["lpips"].params, cpu)
@@ -732,10 +771,32 @@ def train_gpu_vs_cpu(dev):
         require(err <= GRAD_RTOL * scale + 1e-8,
                 f"GPU vs CPU step: gradient leaf {i} {tuple(c.shape)} err {err} (max {scale})")
     require(bool(torch.equal(res_g[4].cpu(), res_c[4])), "GPU vs CPU step: radii differ")
-    print(f"[train] GPU vs CPU step at 128^2 (capacity 1,024, LPIPS on): loss "
+    print(f"[train] GPU vs CPU step at {label} (capacity 1,024, LPIPS on): loss "
           f"{float(m_g['loss']):.6f} vs {float(m_c['loss']):.6f}; {len(leaves_g)} gradient "
           f"leaves, worst max abs err {worst:.3e} of the leaf's max (tolerance {GRAD_RTOL}); "
           f"CPU step {cpu_s:.1f} s", flush=True)
+
+
+def same_step_twice(step, ts, batch, deg, label):
+    """The same train step twice from the same state: gradients, new
+    parameters and densify statistics bit-equal."""
+    import torch
+
+    from mygauhuman_torch.train import trainer as TT
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    a = step.loss_and_grads(ts, batch, deg)
+    b = step.loss_and_grads(ts, batch, deg)
+    same_grads = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[2]) + [a[3]],
+                                                         tree_leaves(b[2]) + [b[3]]))
+    s1, _ = step(ts, batch, deg)
+    s2, _ = step(ts, batch, deg)
+    same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(TT.trainable_params(s1)),
+                                                         tree_leaves(TT.trainable_params(s2))))
+    same_stats = torch.equal(s1.gauss.xyz_grad_accum, s2.gauss.xyz_grad_accum)
+    print(f"[train] {label} twice: gradients bit-equal {same_grads}, new params "
+          f"bit-equal {same_params}, densify stats bit-equal {same_stats}", flush=True)
+    require(same_grads and same_params and same_stats, f"{label} twice differs")
 
 
 def train_bench(scene, cfg, train, dev):
@@ -747,23 +808,9 @@ def train_bench(scene, cfg, train, dev):
     from mygauhuman_torch.ops import cuda_lib
     from mygauhuman_torch.render import render_frame
     from mygauhuman_torch.train import trainer as TT
-    from mygauhuman_torch.train.optim import tree_leaves
 
     step, ts0, batches = train["step"], train["ts"], scene.batches
-
-    # the same step twice from the same state: bit-equal
-    a = step.loss_and_grads(ts0, batches[0], 0)
-    b = step.loss_and_grads(ts0, batches[0], 0)
-    same_grads = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[2]) + [a[3]],
-                                                         tree_leaves(b[2]) + [b[3]]))
-    s1, _ = step(ts0, batches[0], 0)
-    s2, _ = step(ts0, batches[0], 0)
-    same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(TT.trainable_params(s1)),
-                                                         tree_leaves(TT.trainable_params(s2))))
-    same_stats = torch.equal(s1.gauss.xyz_grad_accum, s2.gauss.xyz_grad_accum)
-    print(f"[train] the bench step twice: gradients bit-equal {same_grads}, new params "
-          f"bit-equal {same_params}, densify stats bit-equal {same_stats}", flush=True)
-    require(same_grads and same_params and same_stats, "the same step twice differs")
+    same_step_twice(step, ts0, batches[0], 0, "the bench step")
 
     # ms/step over TRAIN_STEPS steps after warm-up
     ts = ts0
@@ -897,13 +944,14 @@ def train_bench(scene, cfg, train, dev):
     return launches
 
 
-def cli_kernel_checks(out, scene, dev, n_sm):
+def cli_kernel_checks(out, step, template, b0, its, n_sm, run="cli.train"):
     """Every kernel of cli.train's step against its plain version on the
-    inputs that step gives it, under the CLI's raster config (instance
-    capacity 4 x the starting capacity), at two of the run's snapshots:
+    inputs that step gives it (`step` on view `b0`), under the CLI's raster
+    config (instance capacity 4 x the starting capacity), at the run's
+    snapshots `its` (restored into `template`'s structure): for phase 6,
     chkpnt600 (capacity 16,384, the shape of iterations 1-1,000) and
     chkpnt1200 (capacity 32,768, iterations 1,001-1,200). Returns the
-    report of chkpnt600, the shape of most of the run's launches."""
+    report of the first, the shape of most of the run's launches."""
     import mygauhuman_torch.models.lbs as lbs_mod
     import mygauhuman_torch.ops.pallas_blend as pb
     import mygauhuman_torch.ops.pallas_blend_bwd as pbb
@@ -911,18 +959,16 @@ def cli_kernel_checks(out, scene, dev, n_sm):
     from mygauhuman_torch.train.checkpoint import restore_checkpoint_like
     from mygauhuman_torch.train.trainer import active_sh_degree_at
 
-    train = make_trainer(scene, scene.raster_config, dev)
-    b0 = scene.batches[0]
     reports = {}
-    for it in (CLI_MID, CLI_ITERS):
-        ts = restore_checkpoint_like(str(out), it, train["ts"])
+    for it in its:
+        ts = restore_checkpoint_like(str(out), it, template)
         seen: dict = {}
         with capture(lbs_mod, "knn", seen), capture(lbs_mod, "deform_rows", seen), \
                 capture(pb, "blend_rows_raw", seen), capture(pb, "blend_tiles_raw", seen), \
                 capture(pbb, "blend_tiles_bwd_from_ckpt_raw", seen), \
                 capture(pd, "deform_rows_bwd_cuda", seen):
-            train["step"].loss_and_grads(ts, b0, active_sh_degree_at(it, 3))
-        label = (f"cli.train chkpnt{it} (capacity {ts.gauss.capacity}, "
+            step.loss_and_grads(ts, b0, active_sh_degree_at(it, 3))
+        label = (f"{run} chkpnt{it} (capacity {ts.gauss.capacity}, "
                  f"{int(ts.gauss.num_alive)} alive)")
         report = reports[it] = {}
         (q, r), kw = seen["knn"]
@@ -936,11 +982,11 @@ def cli_kernel_checks(out, scene, dev, n_sm):
         require(kw.get("checkpoints") is True, f"{label}: no checkpoint mode")
         check_kernel_c(f"{label} {'planar' if planar else 'tile-major'}", data, starts, counts,
                        tile_base, dict(kw, planar=planar), pb, pbb, report=report,
-                       ckpt_report=True)
+                       ckpt_report=True, name="blend_fwd" if planar else "blend_fwd_tiles")
         check_kernel_d(label, seen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"], report,
                        pb, pbb, main=True)
         check_kernel_b_bwd(seen["deform_rows_bwd_cuda"], report, label)
-    return reports[CLI_MID]
+    return reports[its[0]]
 
 
 def cli_phase(dev, n_sm):
@@ -1029,7 +1075,9 @@ def cli_phase(dev, n_sm):
                                       CLI_SCENE["verts"], dev)
     torch.cuda.synchronize()
     setup = dict(cuda_lib.LAUNCHES)
-    cli_report = cli_kernel_checks(out, scene, dev, n_sm)
+    train = make_trainer(scene, scene.raster_config, dev)
+    cli_report = cli_kernel_checks(out, train["step"], train["ts"], scene.batches[0],
+                                   (CLI_MID, CLI_ITERS), n_sm)
 
     # cli.render: the deform branch, then the replay cache (the branch the
     # reference's 189 FPS measures; its PNGs stay in renders_1200/)
@@ -1567,6 +1615,457 @@ def pbr_phase(dev, n_sm):
     return {"cli_train_pbr": pbr_launches, "cli_render_relight": relight_launches}, report
 
 
+class MemGroup(dict):
+    """An in-memory tree of numpy arrays with h5py's group interface (`[]`,
+    `in`, iteration, `.attrs`, `close`): what SMCReader reads."""
+
+    def __init__(self, items=(), attrs=None):
+        super().__init__(items)
+        self.attrs = dict(attrs or {})
+
+    def close(self):
+        pass
+
+
+def write_h5(group, node):
+    """A MemGroup tree into an open h5py group."""
+    group.attrs.update(node.attrs)
+    for key, value in node.items():
+        if isinstance(value, MemGroup):
+            write_h5(group.create_group(key), value)
+        else:
+            group.create_dataset(key, data=value)
+
+
+def make_smplx_scene(n_views, size, n_verts, seed, cfg, dev, radius=2.0):
+    """A known Gaussian scene on the synthetic SMPL-X body (55 joints, a
+    [486] pose basis, 20 shape dims), built as make_synthetic_scene builds
+    one on SMPL: ground truth through render_frame at a seeded 165-dim pose
+    and seeded betas + expression per view."""
+    import torch
+
+    from mygauhuman_torch.data.synthetic import SyntheticScene, _masks, look_at_camera
+    from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.models.smpl import smpl_forward
+    from mygauhuman_torch.models.smplx import smplx_big_pose_params, synthetic_smplx
+    from mygauhuman_torch.render import FrameInputs, render_frame
+    from mygauhuman_torch.train.trainer import TrainBatch
+    from mygauhuman_torch.utils.transforms import inverse_sigmoid
+
+    rng = np.random.RandomState(seed)
+    model = synthetic_smplx(num_vertices=n_verts, seed=seed, device=dev)
+    big = smplx_big_pose_params(device=dev)
+    with torch.no_grad():
+        verts = smpl_forward(model, big["poses"], big["shapes"])[0]
+    v = verts.cpu().numpy()
+    normals = rng.randn(n_verts, 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    gt = G.create_from_pcd(v, rng.rand(n_verts, 3).astype(np.float32), normals, device=dev)
+    gt = gt._replace(params=gt.params._replace(opacity=torch.full_like(
+        gt.params.opacity, inverse_sigmoid(0.9))))
+    batches = []
+    for i in range(n_views):
+        theta = 2 * np.pi * i / n_views
+        center = v.mean(0)
+        cam = look_at_camera(center + radius * np.array([np.sin(theta), 0.0, np.cos(theta)]),
+                             center, size, size, device=dev)
+        pose = (0.1 * rng.randn(55, 3)).astype(np.float32)
+        pose[0] = 0.0
+        frame = FrameInputs(smpl_param={
+            "poses": torch.as_tensor(pose.reshape(-1), device=dev),
+            "shapes": torch.as_tensor((0.3 * rng.randn(20)).astype(np.float32), device=dev),
+            "R": torch.eye(3, device=dev), "Th": torch.zeros(3, device=dev)},
+            big_pose_param=big, big_pose_verts=verts)
+        with torch.no_grad():
+            out = render_frame(gt, cam, frame, model, bg=torch.zeros(3, device=dev),
+                               active_sh_degree=0, config=cfg)
+        bkgd, bound = _masks(out.render_alpha, size, size)
+        batches.append(TrainBatch(camera=cam, frame=frame, gt_image=out.render,
+                                  gt_normal=out.normal, bkgd_mask=bkgd, bound_mask=bound))
+    init = G.create_from_pcd(v, np.full((n_verts, 3), 0.5, np.float32), normals, device=dev)
+    return SyntheticScene(smpl_model=model, gt_state=gt, init_state=init, batches=batches,
+                          big_pose_verts=verts, extent=float(np.ptp(v, axis=0).max()) * 0.5,
+                          raster_config=cfg)
+
+
+def make_dna_capture(dev):
+    """A DNA-format capture on the synthetic SMPL-X body at the real vertex
+    count, and its SMPL-X npz in the reference layout. DNA["cams"]
+    Camera_5mp cameras on a ring at DNA["dist"] m around the posed bodies'
+    centre, the focal length chosen so that the body spans about half the
+    frame height; DNA["frames"] frames with per-frame fullpose [55, 3],
+    expression and transl, and one row of betas; D = 0. The frames are
+    ground truth from render_frame: a seeded Gaussian state on the big-pose
+    body (6 mm, opacity 0.9), rendered at half the rig's size through the camera
+    whose K is halved (what the reader's 0.5 scaling gives), with no
+    instance dropped but at the 1,024-per-tile cap, stored 2x
+    nearest-upsampled as raw uint8 BGR arrays with their masks (alpha >
+    0.5), so the reader's INTER_AREA halving gives the rendered pixels
+    back. Returns (the capture as a MemGroup tree, the npz path, the GT
+    renders' overflow counters)."""
+    import torch
+
+    from mygauhuman_torch.data.camera import make_camera
+    from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.models.smpl import smpl_forward
+    from mygauhuman_torch.models.smplx import smplx_big_pose_params, synthetic_smplx
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.render import FrameInputs, render_frame
+    from mygauhuman_torch.utils.transforms import inverse_sigmoid
+
+    c = DNA
+    rng = np.random.RandomState(c["seed"])
+    model = synthetic_smplx(num_vertices=c["verts"], seed=c["seed"], device=dev)
+    DNA_DIR.mkdir(parents=True, exist_ok=True)
+    npz = DNA_DIR / "SMPLX_NEUTRAL.npz"
+    np.savez(npz, v_template=model.v_template.cpu().numpy(),
+             shapedirs=model.shapedirs.cpu().numpy(),        # [V, 3, 10 + 10]
+             posedirs=model.posedirs.cpu().numpy(),          # [V, 3, 54 * 9]
+             J_regressor=model.j_regressor.cpu().numpy(), weights=model.weights.cpu().numpy(),
+             parents=np.asarray(model.parents, np.int64), f=np.zeros((0, 3), np.int64))
+    F = c["frames"]
+    fullpose = 0.1 * rng.randn(F, 55, 3)
+    fullpose[:, 0] = 0.0                      # the root upright
+    betas = 0.3 * rng.randn(1, 10)
+    expression = 0.2 * rng.randn(F, 10)
+    transl = 0.01 * rng.randn(F, 3)
+    big = smplx_big_pose_params(device=dev)
+    params = []
+    with torch.no_grad():
+        big_verts = smpl_forward(model, big["poses"], big["shapes"])[0]
+        posed = []
+        for f in range(F):
+            p = {"poses": torch.as_tensor(fullpose[f].reshape(-1), dtype=torch.float32,
+                                          device=dev),
+                 "shapes": torch.as_tensor(np.concatenate([betas[0], expression[f]]),
+                                           dtype=torch.float32, device=dev),
+                 "R": torch.eye(3, device=dev),
+                 "Th": torch.as_tensor(transl[f], dtype=torch.float32, device=dev)}
+            params.append(p)
+            posed.append(smpl_forward(model, p["poses"], p["shapes"])[0] + p["Th"])
+    pts = torch.cat(posed).cpu().numpy()
+    center = 0.5 * (pts.min(0) + pts.max(0))
+    extent = float(np.ptp(pts, axis=0).max())
+    W, H = c["width"], c["height"]
+    focal = 0.5 * H * c["dist"] / extent
+    K = np.array([[focal, 0.0, W / 2], [0.0, focal, H / 2], [0.0, 0.0, 1.0]])
+    K_half = K.copy()
+    K_half[:2] *= 0.5
+
+    v = big_verts.cpu().numpy()
+    normals = rng.randn(len(v), 3).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    gt = G.create_from_pcd(v, rng.rand(len(v), 3).astype(np.float32), normals, device=dev)
+    # isotropic 6 mm Gaussians at opacity 0.9: small enough on screen that
+    # none needs more than the 16 tiles a Gaussian may touch, rendered with
+    # an exact instance list; only kernel C's 1,024-instance tile cap, which
+    # training has too, applies. The training starts from the reader's cloud
+    # at its KNN scales and must shrink them
+    gt = gt._replace(params=gt.params._replace(
+        opacity=torch.full_like(gt.params.opacity, inverse_sigmoid(0.9)),
+        scaling=torch.full_like(gt.params.scaling, float(np.log(DNA["gt_scale"])))))
+    cfg = RasterizerConfig(instance_capacity=None)
+
+    def up2(a):
+        return np.ascontiguousarray(np.repeat(np.repeat(a, 2, axis=0), 2, axis=1))
+
+    color, masks, calib = MemGroup(), MemGroup(), MemGroup()
+    overflow = np.zeros(3, np.int64)
+    coverage = []
+    for cid in range(c["cams"]):
+        theta = 2 * np.pi * cid / c["cams"]
+        eye = center + c["dist"] * np.array([np.sin(theta), 0.0, np.cos(theta)])
+        fwd = (center - eye) / np.linalg.norm(center - eye)
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        R_c2w = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+        RT = np.eye(4)
+        RT[:3, :3], RT[:3, 3] = R_c2w, eye          # camera to world, as the reader takes it
+        calib[str(cid)] = MemGroup({"K": K, "D": np.zeros(5), "RT": RT})
+        cam = make_camera(R=R_c2w, t=-R_c2w.T @ eye, width=W // 2, height=H // 2, K=K_half,
+                          device=dev)
+        color[str(cid)] = MemGroup({"color": MemGroup()})
+        masks[str(cid)] = MemGroup({"mask": MemGroup()})
+        for f in range(F):
+            with torch.no_grad():
+                out = render_frame(gt, cam, FrameInputs(smpl_param=params[f],
+                                                        big_pose_param=big,
+                                                        big_pose_verts=big_verts),
+                                   model, bg=torch.zeros(3, device=dev), active_sh_degree=0,
+                                   config=cfg)
+            rgb = (torch.clamp(out.render, 0, 1) * 255.0).round().to(torch.uint8).cpu().numpy()
+            alpha = out.render_alpha.cpu().numpy()
+            overflow += [int(out.overflow_tiles), int(out.overflow_gauss), int(out.overflow_inst)]
+            coverage.append(float((alpha > 0.5).mean()))
+            color[str(cid)]["color"][str(f)] = up2(rgb[..., ::-1])            # BGR
+            masks[str(cid)]["mask"][str(f)] = up2(((alpha > 0.5) * 255).astype(np.uint8))
+    tree = MemGroup({
+        "Camera_5mp": MemGroup(color, attrs={"num_device": c["cams"], "num_frame": F,
+                                             "resolution": np.array([W, H])}),
+        "Mask": masks, "Camera_Parameter": calib,
+        "SMPLx": MemGroup({"betas": betas, "expression": expression, "fullpose": fullpose,
+                           "transl": transl, "scale": np.float64(1.0)}),
+    }, attrs={"actor_id": 0, "performance_id": 0, "gender": "neutral"})
+    print(f"[dna] capture: {c['cams']} Camera_5mp cameras x {F} frames at {W}x{H} (raw uint8 "
+          f"BGR, 2x nearest-upsampled renders), focal {focal:.1f} px, cameras {c['dist']} m "
+          f"from the body ({extent:.3f} m across), person mask coverage "
+          f"{min(coverage):.3f}-{max(coverage):.3f} of the frame; ground truth {len(v)} "
+          f"Gaussians, overflow tiles/gauss/inst {overflow.tolist()}", flush=True)
+    require(min(coverage) > 0.02, f"the body covers {min(coverage)} of a frame")
+    require(overflow[1] == overflow[2] == 0,
+            f"the ground truth renders dropped instances beyond the tile cap: {overflow}")
+    return tree, npz, overflow
+
+
+@contextlib.contextmanager
+def dna_source(tree, src):
+    """The capture at `src` for the port's DNA reader: an .smc file written
+    with h5py where h5py is installed; else (the card's machine has no h5py)
+    `SMCReader` in `mygauhuman_torch.data.dna_rendering` replaced by a
+    subclass that reads the same tree from memory through the port's own
+    accessors. Yields "h5py" or "memory"."""
+    import importlib.util
+
+    import mygauhuman_torch.data.dna_rendering as dna_mod
+    from mygauhuman_torch.data.smc_reader import SMCReader
+
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        with h5py.File(src, "w") as f:
+            write_h5(f, tree)
+        yield "h5py"
+        return
+
+    class MemSMCReader(SMCReader):
+        def __init__(self, file_path):
+            require(os.path.abspath(file_path) == os.path.abspath(src),
+                    f"the DNA reader opened {file_path}, not the capture {src}")
+            self._attach(tree)
+
+    with patched(dna_mod, "SMCReader", lambda orig: MemSMCReader):
+        yield "memory"
+
+
+def dna_phase(dev, n_sm, card):
+    """The SMPL-X body on a DNA-Rendering capture through the entry points:
+    cli.train --smpl_type smplx on a capture at the 5 MP rig's size (frames
+    1224x1024 after the reader's 0.5 scaling: kernel C tile-major, in
+    checkpoint mode in the step), every kernel against its plain version on
+    the inputs of the CLI's own step at its last snapshot, the same step
+    twice, a small SMPL-X step on the card against the CPU, cli.render on
+    both branches and cli.metrics. Returns (launches per path, report)."""
+    import torch
+
+    from mygauhuman_torch.cli import metrics as cli_metrics
+    from mygauhuman_torch.cli import render as cli_render
+    from mygauhuman_torch.cli import train as cli_train
+    from mygauhuman_torch.data import readers
+    from mygauhuman_torch.data.readers import camera_info_to_batch
+    from mygauhuman_torch.device import exact_convs
+    from mygauhuman_torch.eval.metrics import evaluate_images
+    from mygauhuman_torch.models.gaussians import compact_state
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.render import render_frame
+    from mygauhuman_torch.train import losses as L
+    from mygauhuman_torch.train import trainer as TT
+    from mygauhuman_torch.train.checkpoint import load_checkpoint, load_eval_cache
+    from mygauhuman_torch.train.trainer import active_sh_degree_at
+    from mygauhuman_torch.utils.image_io import write_png
+
+    shutil.rmtree(DNA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree, npz, _ = make_dna_capture(dev)
+    torch.cuda.synchronize()
+    print(f"[dna] capture built in {time.perf_counter() - t0:.1f} s", flush=True)
+    # relative to the checkout: load_scene_info reads the path's words
+    src = os.path.relpath(DNA_DIR / "capture_main.smc")
+    require(not any(w in src.lower() for w in ("zju", "monocap", "render", "mixamo")),
+            f"the capture path {src} would go to another reader")
+    out = DNA_DIR / "train"
+    body = ["-s", src, "--smpl_type", "smplx", "--smpl_model_path", str(npz)]
+    made: dict = {}
+
+    def keep(name):
+        def wrap(orig):
+            def run(*args, **kw):
+                made.setdefault(name, (args, kw))
+                result = orig(*args, **kw)
+                made.setdefault(name + "_result", result)
+                return result
+            return run
+        return wrap
+
+    with dna_source(tree, src) as how:
+        print(f"[dna] the capture is read from {how} ({card})", flush=True)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with patched(TT, "make_train_step", keep("step")), \
+                patched(TT, "train_loop", keep("loop")), \
+                patched(readers, "load_scene_info", keep("info")):
+            res = cli_train.main(body + [
+                "--iterations", str(DNA_ITERS), "--test_iterations", str(DNA_ITERS),
+                "--save_iterations", str(DNA_MID), str(DNA_ITERS), "--skip_galleries",
+                "--model_path", str(out), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        phases = res["phases"]
+        side_s = sum(v["total_s"] for v in phases.values())
+        batches = made["loop"][0][3]
+        b0 = batches[0]
+        print(f"[dna] cli.train --smpl_type smplx: {DNA_ITERS} iterations in "
+              f"{res['elapsed_s']:.3f} s ({1e3 * res['elapsed_s'] / DNA_ITERS:.3f} ms/iteration; "
+              f"without the eval and saves {1e3 * (res['elapsed_s'] - side_s) / DNA_ITERS:.3f} "
+              f"ms/iteration); {wall:.3f} s wall for the command (the reader included); "
+              f"{len(batches)} training views at {b0.camera.width}x{b0.camera.height}; test "
+              f"PSNR {res['test_psnr']:.4f}; {res['n_gaussians']} Gaussians alive, capacity "
+              f"{res['capacity']}; launches {launches} ({card})", flush=True)
+        for e in res["densify"]:
+            print(f"[dna] densify event: {e}")
+        with open(out / "metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        logged = [(r["step"], [int(r[f"train/overflow_{k}"]) for k in ("tiles", "gauss", "inst")])
+                  for r in rows if "train/overflow_inst" in r]
+        print(f"[dna] overflow tiles (the 1,024-per-tile cap) / gauss / inst (instance capacity "
+              f"4 x {made['loop'][0][0].gauss.capacity}) at the logged steps: {logged}",
+              flush=True)
+        require(res["first_iteration"] == 1 and res["last_iteration"] == DNA_ITERS,
+                "cli.train did not run the SMPL-X budget")
+        require(np.isfinite(res["final_loss"]) and res["test_psnr"] > 0,
+                "cli.train on the capture: non-finite loss or no test PSNR")
+        require(len(res["densify"]) >= 2, f"{len(res['densify'])} densify events")
+        require((b0.camera.width, b0.camera.height) == (DNA["width"] // 2, DNA["height"] // 2)
+                and len(batches) == (DNA["cams"] - 1) * DNA["frames"],
+                "the reader did not give the rig's frames at half size")
+        require(made["step"][0][0].j_regressor.shape[0] == 55, "the CLI did not load SMPL-X")
+        for name in ("knn", "deform", "deform_bwd", "blend_fwd_tiles", "blend_fwd_ckpt",
+                     "blend_bwd", "blend_bwd_sums", "blend_bwd_rows"):
+            require(launches[name] > 0, f"cli.train on the capture: kernel {name} not launched")
+        require(launches["blend_fwd"] == launches["blend_fwd_tiles"],
+                "a 1224-wide frame took the planar layout")
+        require(launches["deform_bwd"] == DNA_ITERS and launches["blend_bwd_ckpt"] == 0
+                and launches["blend_fwd_ckpt"] == launches["blend_bwd"],
+                f"cli.train on the capture: launches {launches}")
+
+        # every kernel on the inputs of the CLI's own step at its last
+        # snapshot (tile-major checkpoint mode at 1224x1024), and the step twice
+        step = made["step_result"]
+        report = cli_kernel_checks(out, step, res["state"], b0, (DNA_ITERS,), n_sm,
+                                   run="cli.train smplx")
+        ts_end = load_checkpoint(str(out), DNA_ITERS, res["state"])
+        deg = active_sh_degree_at(DNA_ITERS, 3)
+        same_step_twice(step, ts_end, b0, deg, f"the SMPL-X step at chkpnt{DNA_ITERS}")
+        profile_calls(lambda: step(ts_end, b0, deg), PROFILE_FRAMES,
+                      f"SMPL-X step at chkpnt{DNA_ITERS}, {b0.camera.width}x{b0.camera.height}")
+        # the step's two image-sized loss terms alone, forward and backward,
+        # on the frame: one of its two SSIM terms (the separable blur), and
+        # its LPIPS pair on the crop the CLI sized (the VGG convolutions)
+        img = b0.gt_image.flip(0).clone().requires_grad_(True)
+        bm = b0.bound_mask.float()
+        side = made["step"][1]["lpips_crop"]
+
+        def ssim_term():
+            with exact_convs():
+                torch.autograd.grad(L.ssim(img, b0.gt_image, bm), img)
+
+        def lpips_term():
+            with exact_convs():
+                stack = torch.stack([img, b0.gt_image, img, b0.gt_normal]) * bm[..., None]
+                crop = TT._lpips_crop(stack, bm, side)
+                lp = made["step"][1]["lpips_fn"](crop[0::2], crop[1::2]).sum()
+                torch.autograd.grad(lp, img)
+
+        profile_calls(ssim_term, PROFILE_FRAMES,
+                      f"an SSIM term, forward + backward, {b0.camera.width}x{b0.camera.height}")
+        profile_calls(lpips_term, PROFILE_FRAMES,
+                      f"the LPIPS pair, forward + backward, crop {side}x{side}")
+
+        # a small SMPL-X scene: the step on the card against the CPU
+        train_gpu_vs_cpu(dev, make_smplx_scene(2, DNA_SMALL["size"], DNA_SMALL["verts"], 1,
+                                               small_scene_config(), dev),
+                         label=f"{DNA_SMALL['size']}^2 with the 55-joint SMPL-X")
+
+        # cli.render on both branches, then cli.metrics
+        base = ["--model_path", str(out), "--iteration", str(DNA_ITERS)] + body + [
+            "--device", "cuda"]
+        renders, render_launches = {}, {}
+        for branch, extra in (("deform", []), ("replay", ["--use_replay_cache"])):
+            cuda_lib.reset_launches()
+            m = cli_render.main(base + extra)
+            torch.cuda.synchronize()
+            render_launches[branch] = dict(cuda_lib.LAUNCHES)
+            renders[branch] = m
+            print(f"[dna] cli.render {branch}: PSNR {m['psnr']:.4f}, SSIM {m['ssim']:.4f}, "
+                  f"lpips_rand {m['lpips_rand']:.4f}, fps_wall {m['fps_wall']:.2f}; launches "
+                  f"{render_launches[branch]} ({card})", flush=True)
+            require(render_launches[branch]["blend_fwd_tiles"] > 0
+                    and render_launches[branch]["blend_fwd_ckpt"] == 0
+                    and render_launches[branch]["deform_bwd"] == 0,
+                    f"cli.render {branch}: launches {render_launches[branch]}")
+        require(render_launches["replay"]["knn"] == render_launches["replay"]["deform"] == 0,
+                "cli.render --use_replay_cache ran the deform chain")
+
+    # the replay cache: bit for bit the eval's deform transforms (the state at
+    # chkpnt600 with its MLPs, on the test view), and cli.render's replay
+    # image bit for bit a replay render of the compacted state with them
+    model = made["step"][0][0]
+    info = made["info_result"]
+    require(len(info.test_cameras) == 1, f"{len(info.test_cameras)} test views")
+    tb = camera_info_to_batch(info.test_cameras[0], dev)
+    cache = load_eval_cache(str(out / f"smpl_rot_{DNA_ITERS}.npz"))
+    state = compact_state(ts_end.gauss)
+    alive = torch.nonzero(ts_end.gauss.alive).reshape(-1)
+    cfg = RasterizerConfig()._replace(instance_capacity=4 * state.capacity)
+    kw = dict(bg=torch.zeros(3, device=dev), active_sh_degree=3, config=cfg)
+    with torch.no_grad():
+        deform = render_frame(ts_end.gauss, tb.camera, tb.frame, model,
+                              mlp_params={"pose_refiner": ts_end.pose_refiner,
+                                          "lbs_offset": ts_end.lbs_offset}, **kw)
+        rows = {k: getattr(deform, k)[alive] for k in ("transforms", "translation")}
+        key = str(info.test_cameras[0].pose_id)
+        cache_exact = sorted(cache) == [key] and all(
+            torch.equal(rows[k], torch.as_tensor(cache[key][k], device=dev)) for k in rows)
+        padded = {k: torch.cat([r, r.new_zeros((state.capacity - alive.numel(),) + r.shape[1:])])
+                  for k, r in rows.items()}
+        replay = render_frame(state, tb.camera, tb.frame, model, **padded, **kw)
+        at_train_cfg = render_frame(state, tb.camera, tb.frame, model, **padded,
+                                    **dict(kw, config=made["step"][0][3]))
+    replay_exact = torch.equal(replay.render, renders["replay"]["renders"][0])
+    overflow = lambda o: [int(o.overflow_tiles), int(o.overflow_gauss),  # noqa: E731
+                          int(o.overflow_inst)]
+    print(f"[dna] the replay cache (pose {key}, {alive.numel()} rows) bit-equal to the eval's "
+          f"deform transforms {cache_exact}; cli.render's replay image bit-equal to a replay "
+          f"of them {replay_exact}; its overflow tiles/gauss/inst {overflow(replay)} at "
+          f"instance capacity {cfg.instance_capacity} (4 x the compacted {state.capacity}); "
+          f"the same replay under the training config (instance capacity "
+          f"{made['step'][0][3].instance_capacity}): overflow {overflow(at_train_cfg)}, "
+          f"PSNR {float(evaluate_images([at_train_cfg.render], [tb.gt_image])['psnr']):.4f} "
+          f"against cli.render's {renders['replay']['psnr']:.4f}", flush=True)
+    require(cache_exact and replay_exact, "the SMPL-X replay cache does not reproduce the "
+            "eval's deform transforms, or cli.render does not replay them")
+
+    gt_dir = DNA_DIR / "gt"
+    gt_dir.mkdir(parents=True)
+    q = lambda x: (np.clip(x.cpu().numpy(), 0, 1) * 255).astype(np.uint8)  # noqa: E731
+    write_png(str(gt_dir / "00000.png"), q(tb.gt_image))
+    got = cli_metrics.main(["-r", str(out / f"renders_{DNA_ITERS}"), "-g", str(gt_dir),
+                            "-o", str(DNA_DIR / "metrics.json"), "--device", "cuda"])
+    as8 = lambda x: torch.as_tensor(q(x).astype(np.float32) / 255.0, device=dev)  # noqa: E731
+    mem = evaluate_images([as8(renders["replay"]["renders"][0])], [as8(tb.gt_image)])
+    print(f"[dna] cli.metrics: PSNR {got['psnr']:.6f} from the PNGs, {mem['psnr']:.6f} on the "
+          f"same 8-bit images in memory, results.json {renders['replay']['psnr']:.6f}; SSIM "
+          f"{got['ssim']:.6f} vs {mem['ssim']:.6f}", flush=True)
+    require(abs(got["psnr"] - mem["psnr"]) <= METRICS_ATOL
+            and abs(got["ssim"] - mem["ssim"]) <= METRICS_ATOL,
+            "cli.metrics disagrees with the metrics of its images on the capture")
+    require(abs(got["psnr"] - renders["replay"]["psnr"]) <= QUANT_PSNR_DB,
+            "cli.metrics' PSNR is beyond 8-bit quantisation of results.json's")
+    return {"smplx_dna": launches, "smplx_dna_render_deform": render_launches["deform"],
+            "smplx_dna_render_replay": render_launches["replay"]}, report
+
+
 def main() -> None:
     import torch
 
@@ -1861,51 +2360,62 @@ def main() -> None:
     pbr_launches, pbr_report = pbr_phase(dev, n_sm)
     print(f"[pbr] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 8: results --------------------------------------------------
+    # ---- phase 8: the SMPL-X body on a DNA-Rendering capture -----------------
+    t0 = time.perf_counter()
+    dna_launches, dna_report = dna_phase(dev, n_sm, card)
+    print(f"[dna] phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+    # ---- phase 9: results --------------------------------------------------
     # time lost on the main paths, launches x (device ms - bound): the 4 + 4
     # serving frames of phase 3, the 60-iteration loop (kernels B and C: the
     # loop at the training step's capture), cli.train's 1,200 iterations
     # (each kernel at the inputs of the step at chkpnt600, kernel C in its
-    # checkpoint mode) and its 300 branch-B iterations (each kernel at the
+    # checkpoint mode), its 300 branch-B iterations (each kernel at the
     # inputs of a branch-B step at chkpnt1200, kernel C tile-major at a bake
-    # face)
+    # face) and the SMPL-X run's 600 iterations (each kernel at the inputs of
+    # its step at chkpnt600, kernel C tile-major in checkpoint mode)
     # `blend_fwd` counts every kernel C launch and `blend_fwd_tiles` the
     # tile-major ones; from here `blend_fwd` is the planar launches (the TPU
     # row kernel's), so each row counts its own layout
     for counts in (serving_launches, loop_launches, *cli_launches.values(),
-                   *pbr_launches.values()):
+                   *pbr_launches.values(), *dna_launches.values()):
         counts["blend_fwd"] -= counts["blend_fwd_tiles"]
     cli_train_launches = cli_launches.pop("cli_train")
     pbr_train_launches = pbr_launches.pop("cli_train_pbr")
+    dna_train_launches = dna_launches["smplx_dna"]
 
     def lost_ms(entry, n):
         return "n/a" if entry is None or entry["device_ms"] is None else \
             f"{n * (entry['device_ms'] - entry['bound_ms']):.4f}"
 
     lost = []
-    for name in sorted(set(report) | set(pbr_report)):
+    for name in sorted(set(report) | set(pbr_report) | set(dna_report)):
         e = report.get(name)
         loop_e = e and dict(e, device_ms=e.get("loop_device_ms", e["device_ms"]),
                             bound_ms=e.get("loop_bound_ms", e["bound_ms"]))
         lost.append(f"{name} {lost_ms(e, serving_launches[name])} / "
                     f"{lost_ms(loop_e, loop_launches[name])} / "
                     f"{lost_ms(cli_report.get(name), cli_train_launches[name])} / "
-                    f"{lost_ms(pbr_report.get(name), pbr_train_launches[name])} (launches "
+                    f"{lost_ms(pbr_report.get(name), pbr_train_launches[name])} / "
+                    f"{lost_ms(dna_report.get(name), dna_train_launches[name])} (launches "
                     f"{serving_launches[name]} / {loop_launches[name]} / "
-                    f"{cli_train_launches[name]} / {pbr_train_launches[name]})")
+                    f"{cli_train_launches[name]} / {pbr_train_launches[name]} / "
+                    f"{dna_train_launches[name]})")
     print("[lost] ms lost on the main paths from device time, serving / loop / cli.train / "
-          "branch B: " + "; ".join(lost), flush=True)
-    # this slice's main path is cli.train's 300 branch-B iterations: `launches`
-    # are its counts, and each kernel it runs is measured on the inputs of a
-    # branch-B step at chkpnt1200 (kernel C tile-major on a bake face); the
-    # kernel it does not run (B's backward) keeps cli.train's chkpnt600
-    # numbers; the other paths' counts beside them
+          "branch B / SMPL-X: " + "; ".join(lost), flush=True)
+    # this slice's main path is cli.train's 600 iterations on the SMPL-X
+    # capture: `launches` are its counts, and each kernel it runs is measured
+    # on the inputs of its step at chkpnt600 (kernel C tile-major in
+    # checkpoint mode at 1224x1024); the planar kernel C, which it does not
+    # run, keeps the branch-B step's numbers; the other paths' counts beside
+    # them
     paths = {"serving": serving_launches, "loop": loop_launches,
-             "cli_train": cli_train_launches, **cli_launches, **pbr_launches}
+             "cli_train": cli_train_launches, **cli_launches, **pbr_launches, **dna_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: pbr_report.get(n, cli_report.get(n))[k] for k in keys},
-                    launches=pbr_train_launches[n],
+    kernels = [dict({k: dna_report.get(n, pbr_report.get(n, cli_report.get(n)))[k]
+                     for k in keys},
+                    launches=dna_train_launches[n],
                     launches_by_path={p: c[n] for p, c in paths.items()})
                for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles",
                          "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]

@@ -23,6 +23,10 @@ it, with `relight_oracle` true and the relit-vs-original-light numbers as
 `psnr_drift` / `ssim_drift`; on real data `relight_oracle` is false. The
 `fps_device` sweep renders unlit frames, as the JAX CLI's.
 
+`-s` takes the human sources `cli.train` trains on (ZJU-MoCap, MonoCap,
+render/mixamo, DNA-Rendering `.smc` with the SMPL-X body); their test
+split is what is rendered.
+
 Deliberate difference from the JAX CLI: `--synthetic` builds the train
 CLI's synthetic scene (`--synthetic_verts`, `--synthetic_views`, the same
 capacity rule and rasterizer settings) where the JAX CLI always builds 400
@@ -48,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--smpl_model_path", type=str,
                    default="assets/SMPL_NEUTRAL_renderpeople.pkl")
     p.add_argument("--smpl_type", type=str, default="smpl",
-                   help="smpl; smplx is not ported yet (raises)")
+                   help="smpl, or smplx (the 55-joint SMPL-X; an .smc source "
+                        "implies it)")
     p.add_argument("--white_background", action="store_true")
     p.add_argument("--skip_train", action="store_true", default=True)
     p.add_argument("--synthetic", action="store_true")

@@ -21,9 +21,13 @@ in the port's torch.save format (a branch-B save holds (TrainState,
 PbrState)).
 
 The parser is the reference's, plus `--device` (default cuda: without a
-card it raises; nothing falls back to the CPU). Features not ported yet
-raise NotImplementedError naming their ROADMAP Queue 1 item: `--gui`,
-SMPL-X bodies and `.smc` sources (item 4), `--multichip` (item 5).
+card it raises; nothing falls back to the CPU). `--smpl_type smplx` (or an
+`.smc` / `dna_rendering` source) loads the 55-joint SMPL-X body
+(`models/smplx.py`); the MLPs, the deform chain and the replay cache size
+themselves from its joint count. `--gui` serves the SIBR live viewer
+(`utils/network_gui.py`) between iterations with frames from
+`render_frame`. The feature not ported yet raises NotImplementedError
+naming its ROADMAP Queue 1 item: `--multichip` (item 5).
 Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
 command returns at once without training), `--scan_chunk` and
 `--occ_budget_mb` (the loops run one step per call, with the same
@@ -51,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--smpl_model_path", type=str,
                    default="assets/SMPL_NEUTRAL_renderpeople.pkl")
     p.add_argument("--smpl_type", type=str, default="smpl",
-                   help="smpl; smplx is not ported yet (raises)")
+                   help="smpl, or smplx (the 55-joint SMPL-X, loaded from "
+                        "--smpl_model_path; an .smc source implies it)")
     p.add_argument("--white_background", action="store_true")
     p.add_argument("--motion_offset_flag", action="store_true", default=True)
     p.add_argument("--eval", action="store_true", default=True)
@@ -78,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--disable_lpips", action="store_true",
                    help="drop the 0.01*lpips training term and eval metric")
     p.add_argument("--gui", action="store_true",
-                   help="the SIBR live viewer: not ported yet (raises)")
+                   help="serve the SIBR live viewer between iterations")
     p.add_argument("--gui_host", type=str, default="127.0.0.1",
                    help="read only with --gui")
     p.add_argument("--gui_port", type=int, default=6009, help="read only with --gui")
@@ -131,14 +136,6 @@ def _is_smplx_source(smpl_type: str, source_path: str) -> bool:
 
 def refuse_unported(args) -> None:
     """NotImplementedError for a flag whose feature is not ported yet."""
-    if args.gui:
-        raise NotImplementedError(
-            "--gui (the SIBR network viewer) is not ported to mygauhuman_torch yet "
-            "(ROADMAP Queue 1 item 4)")
-    if _is_smplx_source(args.smpl_type, args.source_path):
-        raise NotImplementedError(
-            "SMPL-X bodies and DNA-Rendering (.smc) sources are not ported to "
-            "mygauhuman_torch yet (ROADMAP Queue 1 item 4)")
     if args.multichip:
         raise NotImplementedError(
             "--multichip (the tile-sharded multi-device step) is not ported to "
@@ -162,10 +159,13 @@ def synthetic_scene(n_views: int, size: int, n_verts: int, device, capacity: int
 
 
 def load_body_model(smpl_type: str, model_path: str, source_path: str, device):
-    """--smpl_type dispatch: SMPL (24 joints). SMPL-X is not ported yet."""
+    """--smpl_type dispatch (reference arguments/__init__.py smpl_type + scene
+    dispatch): 'smplx' (or an .smc / dna_rendering source) loads the 55-joint
+    SMPL-X into the common SMPLModel, else SMPL (24 joints)."""
     if _is_smplx_source(smpl_type, source_path):
-        raise NotImplementedError(
-            "SMPL-X bodies are not ported to mygauhuman_torch yet (ROADMAP Queue 1 item 4)")
+        from mygauhuman_torch.models.smplx import load_smplx
+
+        return load_smplx(model_path, device=device)
     from mygauhuman_torch.models.smpl import load_smpl
 
     return load_smpl(model_path, device=device)
@@ -314,6 +314,11 @@ def main(argv=None) -> dict:
     logger = MetricLogger(out_dir)
     timer = PhaseTimer()
     eval_cache: dict = {}
+    gui = None
+    if args.gui:
+        from mygauhuman_torch.utils.network_gui import NetworkGUI
+
+        gui = NetworkGUI(args.gui_host, args.gui_port)
 
     def eval_metrics(render, gt) -> dict:
         m = {"l1": L.l1_loss(render, gt), "psnr": L.psnr(render, gt),
@@ -381,6 +386,42 @@ def main(argv=None) -> dict:
     last_psnr = 0.0
     seen = {"first": None, "last": None, "densify": []}
 
+    def poll_gui(it, ts):
+        """train.py:180-193: answer viewer frames between iterations."""
+        if gui is None or not gui.try_connect():
+            return
+        import math
+
+        from mygauhuman_torch.data.camera import Camera
+
+        try:
+            while True:
+                cam, _, keep_alive, scaling_mod = gui.receive()
+                img = None
+                if cam is not None:
+                    w2c = np.asarray(cam.w2c, np.float32)
+                    c2w = np.linalg.inv(w2c.astype(np.float64))
+                    camera = Camera(
+                        w2c=torch.as_tensor(w2c, device=dev),
+                        full_proj=torch.as_tensor(np.asarray(cam.full_proj, np.float32),
+                                                  device=dev),
+                        cam_center=torch.as_tensor(c2w[:3, 3].astype(np.float32), device=dev),
+                        tan_fovx=math.tan(cam.fovx / 2), tan_fovy=math.tan(cam.fovy / 2),
+                        width=cam.width, height=cam.height)
+                    with torch.no_grad():
+                        out = render_frame(
+                            ts.gauss, camera, train_batches[0].frame, smpl_model, bg=bg,
+                            active_sh_degree=min(it // 1000, args.sh_degree),
+                            mlp_params={"pose_refiner": ts.pose_refiner,
+                                        "lbs_offset": ts.lbs_offset},
+                            config=raster_cfg, scaling_modifier=scaling_mod)
+                    img = out.render.cpu().numpy()
+                gui.send_image(img, out_dir)
+                if not keep_alive:
+                    break
+        except (ConnectionError, OSError):
+            gui.drop_connection()
+
     def callback(it, ts, metrics):
         nonlocal last_psnr
         if seen["first"] is None:
@@ -389,6 +430,7 @@ def main(argv=None) -> dict:
         if it % 100 == 0 or it == 1:
             logger.log(it, metrics)
             logger.log(it, {"n_gaussians": int(ts.gauss.num_alive)}, prefix="scene")
+        poll_gui(it, ts)
         if "capacity" in metrics:       # a densify event ran at this iteration
             seen["densify"].append({"iteration": it, "capacity": metrics["capacity"],
                                     **{k[len("densify_"):]: v for k, v in metrics.items()
@@ -467,6 +509,8 @@ def main(argv=None) -> dict:
     n_alive = int(ts.gauss.num_alive)
     print(f"training done: {cfg.iterations} iters in {elapsed:.1f}s "
           f"({n_alive} gaussians)")
+    if gui is not None:
+        gui.close()
     logger.close()
     return {"elapsed_s": elapsed,
             "final_loss": float(metrics.get("loss", 0.0)),

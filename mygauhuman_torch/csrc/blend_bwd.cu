@@ -19,7 +19,8 @@
 // Rows of instances no pixel includes stay as the caller zeroed them.
 //
 // Math (the TPU kernel's): alpha = min(0.99, op exp(power)); an instance is
-// valid iff power <= 0 and alpha >= 1/255; it is included while the full
+// valid iff power <= 0 and alpha >= 1/255 (built with -fmad=false, as kernel
+// C is: both round power, so alpha, as the plain version); it is included while the full
 // transmittance over every valid alpha stays >= 1e-4, so a pixel's included
 // instances are the valid ones before its first failing instance (`stop`).
 // With q_i = f_i . g_color + g_alpha + depth_i g_depth and

@@ -12,7 +12,9 @@
 // opacity, depth, ones, then the features), each tile's contiguous slice
 // [starts[t], starts[t] + counts[t]) in front-to-back order. Per pixel:
 // alpha = min(0.99, op exp(power)); an instance is skipped if power > 0 or
-// alpha < 1/255; it is included while T (1 - alpha) >= 1e-4, with weight
+// alpha < 1/255 (built with -fmad=false, so that power rounds as the plain
+// version's and an alpha at the 1/255 test falls on the same side); it is
+// included while T (1 - alpha) >= 1e-4, with weight
 // w = alpha T. A pixel stops at the first instance that fails that test
 // (the sticky `done` of the CUDA reference's renderCUDA): T is the product
 // over every valid alpha so far, and the final T counts only included

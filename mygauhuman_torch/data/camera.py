@@ -65,6 +65,10 @@ def projection_from_K(
     return P
 
 
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
 def focal2fov(focal: float, pixels: int) -> float:
     return 2 * math.atan(pixels / (2 * focal))
 

@@ -1,5 +1,5 @@
-"""Dataset readers: ZJU-MoCap-refine, MonoCap and the render/mixamo layout
-(port of data/readers.py).
+"""Dataset readers: ZJU-MoCap-refine, MonoCap, the render/mixamo layout, and
+the dispatch to DNA-Rendering, COLMAP and Blender (port of data/readers.py).
 
 A copy of the JAX package's numpy readers, which re-derive the reference's
 `scene/dataset_readers.py` (SURVEY.md §2.13). Three places call the port
@@ -8,8 +8,9 @@ instead of JAX code: the big-pose SMPL evaluation (`_prep_big_pose`,
 `ops/sh.py::sh2rgb`) and `camera_info_to_batch` (the port's camera,
 `FrameInputs` and `TrainBatch`, on `device`). `cv2` and `imageio` are
 imported inside the functions that use them. The DNA-Rendering, COLMAP and
-Blender formats are not ported yet (ROADMAP Queue 1 item 4):
-`load_scene_info` raises NotImplementedError for them.
+Blender readers live in `data/dna_rendering.py`, `data/colmap.py` and
+`data/blender.py`, imported by `load_scene_info` when a source asks for
+them.
 
   * readers return SceneInfo(train/test CameraInfo lists, point cloud,
     nerf++ normalization) exactly like the reference dispatcher
@@ -586,18 +587,28 @@ def load_scene_info(
     if "render" in source_path.lower() or "mixamo" in source_path.lower():
         return read_render_info(source_path, white_background, output_path,
                                 eval, smpl_model)
-    unported = (
-        (source_path.endswith(".smc") or "dna_rendering" in source_path.lower(),
-         "DNA-Rendering (.smc)"),
-        (os.path.exists(os.path.join(source_path, "sparse")), "COLMAP"),
-        (os.path.exists(os.path.join(source_path, "transforms_train.json")),
-         "Blender (NeRF-synthetic)"),
-    )
-    for hit, name in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{name} scenes are not ported to mygauhuman_torch yet (ROADMAP "
-                f"Queue 1 item 4); {source_path}")
+    if source_path.endswith(".smc") or "dna_rendering" in source_path.lower():
+        from mygauhuman_torch.data.dna_rendering import read_dna_rendering_info
+
+        # forward only a 55-joint SMPL-X model (cli passes load_smplx's
+        # output for --smpl_type smplx); a 24-joint SMPL (or None) falls
+        # back to the reader's own gender-matched load from the default
+        # assets path
+        smplx_model = (
+            smpl_model if smpl_model is not None
+            and smpl_model.j_regressor.shape[0] == 55 else None
+        )
+        return read_dna_rendering_info(source_path, white_background,
+                                       output_path, eval,
+                                       smplx_model=smplx_model)
+    if os.path.exists(os.path.join(source_path, "sparse")):
+        from mygauhuman_torch.data.colmap import read_colmap_scene_info
+
+        return read_colmap_scene_info(source_path, white_background, eval)
+    if os.path.exists(os.path.join(source_path, "transforms_train.json")):
+        from mygauhuman_torch.data.blender import read_nerf_synthetic_info
+
+        return read_nerf_synthetic_info(source_path, white_background, eval)
     raise ValueError(f"Could not recognize scene type for {source_path}")
 
 

@@ -26,7 +26,7 @@ from mygauhuman_torch.utils.transforms import inv3x3, rodrigues
 class DeformOutput(NamedTuple):
     smpl_pts: torch.Tensor       # [N, 3] posed points in SMPL space
     world_pts: torch.Tensor      # [N, 3] posed points in world space
-    bweights: torch.Tensor       # [N, 24] blend weights used
+    bweights: torch.Tensor       # [N, J] blend weights used
     transforms: torch.Tensor     # [N, 3, 3] world rotation of each Gaussian
     translation: torch.Tensor    # [N, 3] world = T x + t
     world_normals: torch.Tensor  # [N, 3]
@@ -45,7 +45,7 @@ def transform_params(
     rot_mats: torch.Tensor | None = None,
     correct_Rs: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-joint rest->posed rigid transforms A [24, 4, 4] and rest joints."""
+    """Per-joint rest->posed rigid transforms A [J, 4, 4] and rest joints."""
     v_shaped = model.v_template + torch.einsum(
         "vdb,b->vd", model.shapedirs, params["shapes"].reshape(-1))
     joints = model.j_regressor @ v_shaped
@@ -59,7 +59,7 @@ def transform_params(
 def _pose_offsets(model: SMPLModel, rot_mats: torch.Tensor) -> torch.Tensor:
     """Per-vertex pose blendshape offsets [V, 3] from (R - I) features."""
     ident = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
-    feature = (rot_mats[1:] - ident).reshape(-1)  # [207]
+    feature = (rot_mats[1:] - ident).reshape(-1)  # [(J - 1) * 9]: 207 or 486
     return torch.einsum("vdp,p->vd", model.posedirs, feature)
 
 
@@ -69,8 +69,8 @@ def coarse_deform_c2source(
     params: dict,                       # poses [72], shapes [B], R [3,3], Th [3]
     big_pose_params: dict,
     big_pose_verts: torch.Tensor,       # [V, 3]
-    lbs_offset: torch.Tensor | None = None,   # [N, 24] weight-logit offsets
-    correct_Rs: torch.Tensor | None = None,   # [23, 3, 3]
+    lbs_offset: torch.Tensor | None = None,   # [N, J] weight-logit offsets
+    correct_Rs: torch.Tensor | None = None,   # [J - 1, 3, 3]
     normals: torch.Tensor | None = None,      # [N, 3]
     vert_ids: torch.Tensor | None = None,     # [N] nearest SMPL vertex
 ) -> DeformOutput:

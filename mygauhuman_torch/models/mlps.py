@@ -1,9 +1,10 @@
 """Learned deformation-correction MLPs as plain parameter dicts.
 
-Port of models/mlps.py: the pose refiner (69 -> 128 -> 128 -> 69, output
-through the regularised Rodrigues -> [23, 3, 3] corrections) and the PE-63
+Port of models/mlps.py: the pose refiner (3 (J - 1) -> 128 -> 128 ->
+3 (J - 1), output through the regularised Rodrigues -> [J - 1, 3, 3]
+corrections; 69 wide for SMPL's J = 24, 162 for SMPL-X's 55) and the PE-63
 LBS-offset decoder (width 128, depth 4, skip concat after layer 2 ->
-[N, 24] blend-weight logit offsets). The dict layout is the JAX one, so
+[N, J] blend-weight logit offsets); `total_bones` = J sizes both. The dict layout is the JAX one, so
 `interop.tensor_tree` carries trained weights across. Weights are [in, out]
 and applied as `h @ w + b`. The init draws from a `torch.Generator`; it does
 not reproduce the JAX PRNG's numbers.
@@ -17,7 +18,7 @@ import torch
 from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
 from mygauhuman_torch.utils.transforms import rodrigues_mlp
 
-POSE_INPUT_DIM = 69  # 23 non-root joints * 3
+POSE_INPUT_DIM = 69  # SMPL: 23 non-root joints * 3 (SMPL-X: 162; sized by total_bones)
 PE_FREQS = 10
 PE_DIM = 3 + 3 * 2 * PE_FREQS  # 63
 
@@ -50,7 +51,7 @@ def init_pose_refiner(gen: torch.Generator, total_bones: int = 24, width: int = 
 
 
 def apply_pose_refiner(params, pose_vec: torch.Tensor) -> torch.Tensor:
-    """[69] non-root pose -> [23, 3, 3] correction rotations."""
+    """[3 (J - 1)] non-root pose -> [J - 1, 3, 3] correction rotations."""
     h = pose_vec
     layers = params["layers"]
     for p in layers[:-1]:
@@ -82,7 +83,7 @@ def init_lbs_offset(gen: torch.Generator, total_bones: int = 24, width: int = 12
 
 
 def apply_lbs_offset(params, pts: torch.Tensor, skips: tuple = (2,)) -> torch.Tensor:
-    """[N, 3] canonical points -> [N, 24] blend-weight logit offsets
+    """[N, 3] canonical points -> [N, J] blend-weight logit offsets
     (activation first, then the PE features concatenated after the skip)."""
     feat = positional_encode(pts)
     h = feat

@@ -16,7 +16,7 @@ import torch
 from mygauhuman_torch.device import DEFAULT_DEVICE, resolve_device
 from mygauhuman_torch.utils.transforms import rodrigues
 
-NUM_JOINTS = 24
+NUM_JOINTS = 24          # SMPL (SMPL-X: models/smplx.py, 55)
 NUM_POSE_BASIS = 207  # (24-1) * 9
 
 SMPL_PARENTS = np.array(
@@ -26,14 +26,15 @@ SMPL_PARENTS = np.array(
 
 
 class SMPLModel(NamedTuple):
-    """Constant tensors of one body model."""
+    """Constant tensors of one body model: J = 24 joints for SMPL, 55 for
+    SMPL-X (models/smplx.py), whose pose basis is (J - 1) * 9 wide."""
 
     v_template: torch.Tensor   # [V, 3]
-    shapedirs: torch.Tensor    # [V, 3, B]
-    posedirs: torch.Tensor     # [V, 3, 207]
-    j_regressor: torch.Tensor  # [24, V]
-    weights: torch.Tensor      # [V, 24]
-    parents: np.ndarray        # [24] host-side int
+    shapedirs: torch.Tensor    # [V, 3, B] (SMPL-X: 10 betas + 10 expression)
+    posedirs: torch.Tensor     # [V, 3, (J - 1) * 9]: 207 (SMPL), 486 (SMPL-X)
+    j_regressor: torch.Tensor  # [J, V]
+    weights: torch.Tensor      # [V, J]
+    parents: np.ndarray        # [J] host-side int
     faces: np.ndarray          # [F, 3] host-side
 
 
@@ -160,7 +161,7 @@ def big_pose_params(num_betas: int = 10,
 
 def smpl_forward(
     model: SMPLModel,
-    poses: torch.Tensor,     # [72] axis-angle or [24, 3, 3] rotations
+    poses: torch.Tensor,     # [3 J] axis-angle or [J, 3, 3] rotations
     shapes: torch.Tensor,    # [B]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SMPL forward: (vertices [V, 3], posed joints [J, 3])."""

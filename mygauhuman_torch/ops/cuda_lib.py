@@ -44,8 +44,12 @@ SOURCES = {
     # -fmad=false: bit-for-bit the plain versions' op order, forward and
     # backward (launch-bound, so contraction buys nothing)
     "deform": ("deform.cu", ["-fmad=false"]),
-    "blend_fwd": ("blend_fwd.cu", []),
-    "blend_bwd": ("blend_bwd.cu", []),
+    # -fmad=false: alpha's Gaussian exponent must round as the plain version
+    # computes it, or an alpha within rounding of the 1/255 test is dropped
+    # where the plain version keeps it (an FMA-contracted exponent did, on a
+    # pixel of the SMPL-X training step); kernel D recomputes the same alpha
+    "blend_fwd": ("blend_fwd.cu", ["-fmad=false"]),
+    "blend_bwd": ("blend_bwd.cu", ["-fmad=false"]),
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, "deform_bwd", "blend_fwd_ckpt", "blend_fwd_tiles",

@@ -1,4 +1,5 @@
-"""8-bit PNG files through the standard library's zlib and numpy.
+"""8-bit PNG files through the standard library's zlib and numpy
+(`read_image` reads other formats through cv2).
 
 The JAX package writes and reads its PNGs (render galleries, rendered
 views, the metrics CLI's directories) with imageio, which the port's GPU
@@ -105,3 +106,20 @@ def read_png(path: str) -> np.ndarray:
     for y in range(h):
         prior = out[y] = _unfilter(int(raw[y, 0]), raw[y, 1:], prior, c)
     return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
+
+
+def read_image(path: str) -> np.ndarray:
+    """uint8 pixels of an image file in imageio's channel order: PNG files
+    through `read_png`, other formats (JPEG, ...) through cv2, BGR(A)
+    reordered to RGB(A). cv2's and imageio's JPEG decoders may differ by a
+    level."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise ValueError(f"cv2 could not read {path}")
+    if img.ndim == 3:
+        img = img[..., [2, 1, 0, 3][: img.shape[2]]] if img.shape[2] >= 3 else img
+    return np.ascontiguousarray(img)

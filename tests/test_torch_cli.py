@@ -10,9 +10,9 @@ against the JAX package's CLIs, on the CPU (`--device cpu`).
     (8-bit PNGs of float32 renders through two rasterizers) and PSNR
     within 0.05 dB.
   * `--start_checkpoint` resumes at the next iteration; `cli.train` reads
-    tests/test_data_readers.py's ZJU disk fixture; every flag of a feature
-    not ported yet raises NotImplementedError; `--precompile` returns at
-    once without training.
+    tests/test_data_readers.py's ZJU disk fixture; the flag of the feature
+    not ported yet (`--multichip`) raises NotImplementedError; `--precompile`
+    returns at once without training.
   * `cli.metrics` against the JAX `evaluate_dirs` on the same PNG
     directories: PSNR and SSIM within 1e-4 (float32, another order of the
     same sums). LPIPS: the two random backbones come from different PRNGs,
@@ -161,12 +161,7 @@ def test_train_on_zju_disk_fixture(tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "gui": (train_main, ["--gui"], "item 4"),
-    "smplx": (train_main, ["--smpl_type", "smplx"], "item 4"),
-    "smc": (train_main, ["-s", "subject.smc"], "item 4"),
     "multichip": (train_main, ["--multichip"], "item 5"),
-    "render_smplx": (render_main, ["--model_path", "x", "-s", "data/zju/x",
-                                   "--smpl_type", "smplx"], "item 4"),
 }
 
 

@@ -219,6 +219,21 @@ def test_knn_kernel_ragged_shapes(cuda, k, Q, R, mask, exclude):
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
 
 
+@pytest.mark.parametrize("Q", [16384, 32768])
+def test_knn_kernel_at_the_smplx_shape(cuda, Q):
+    """The SMPL-X path's queries: the state's capacity against R = 10,475
+    big-pose vertices (5 full 2,048-ref tiles and a ragged 235)."""
+    rng = np.random.default_rng(Q)
+    r = torch.as_tensor(rng.normal(size=(10475, 3)).astype(np.float32) * 0.3, device=cuda)
+    pick = rng.integers(0, 10475, Q)
+    q = r[torch.as_tensor(pick, device=cuda)] + torch.as_tensor(
+        rng.normal(size=(Q, 3)).astype(np.float32) * 0.01, device=cuda)
+    d_k, i_k = knn_small_refs_cuda(q, r, 1)
+    d_p, i_p = knn_small_refs_plain(q, r, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
 @pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("n_valid", [0, 1, 2])
 @pytest.mark.parametrize("exclude", [False, True])
@@ -317,7 +332,16 @@ def test_deform_bwd_kernel_gradients_asked_for(cuda, needs):
         assert not need or torch.equal(x.grad, y)
 
 
-@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+def test_dna_frames_take_the_tile_major_layout():
+    """1224 x 1024 frames: 77 x 64 tiles, 1,232 px rows, not a multiple of
+    128, so the layout rule picks tile-major (no card needed)."""
+    inst, kw = instance_inputs("cpu", 1224, 1024, n=60, C=3)
+    assert (kw["n_tiles"], kw["tiles_x"], kw["planar"]) == (4928, 77, False)
+    assert pb.row_mode_supported(4928, 77, 16, 16) == 0
+    assert pb.row_mode_supported(32 * 32, 32, 16, 16) == 8
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144), (1224, 1024)])
 def test_blend_kernel_matches_plain(cuda, w, h):
     inst, kw = instance_inputs(cuda, w, h)
     assert kw["planar"] == (w == 512)
@@ -329,6 +353,43 @@ def test_blend_kernel_matches_plain(cuda, w, h):
         assert float(torch.cat([err[:20], err[21:]]).max()) <= 1e-4
         assert float(err[20].max()) <= 1e-3
     assert float(want.max()) > 0.1
+
+
+def test_blend_kernel_alpha_test_rounds_as_plain(cuda):
+    """Alpha at the 1/255 test: 4,096 tiles of one instance each, each
+    instance's opacity set to the smallest value whose plain alpha passes
+    the test at one pixel of its tile. The kernel keeps every one of them
+    and decides as the plain version at every pixel (with its exponent
+    contracted into FMAs it dropped such instances: a pixel of the SMPL-X
+    training step, 0.0073 in its final T)."""
+    rng = np.random.default_rng(11)
+    T, tx = 4096, 64
+    t = np.arange(T)
+    p = rng.integers(0, 256, T)
+    px = ((t % tx) * 16 + p % 16).astype(np.float32)
+    py = ((t // tx) * 16 + p // 16).astype(np.float32)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)   # noqa: E731
+    x, y = f(px + rng.uniform(-12, 12, T)), f(py + rng.uniform(-12, 12, T))
+    cxx, cyy = f(rng.uniform(0.002, 0.05, T)), f(rng.uniform(0.002, 0.05, T))
+    cxy = f(rng.uniform(-0.5, 0.5, T)) * torch.sqrt(cxx * cyy)
+    dx, dy = x - f(px), y - f(py)
+    e = torch.exp(-0.5 * (cxx * dx * dx + cyy * dy * dy) - cxy * dx * dy)
+    thr = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=cuda)
+    op = thr / e
+    for _ in range(8):      # up by an ulp until the plain alpha passes
+        op = torch.where(op * e < thr, torch.nextafter(op, torch.full_like(op, 1.0)), op)
+    ones = torch.ones(T, device=cuda)
+    data = torch.stack([x, y, cxx, cxy, cyy, op, ones, ones, ones]
+                       + [torch.zeros(T, device=cuda)] * 7).contiguous()
+    args = (data, torch.arange(T, dtype=torch.int32, device=cuda),
+            torch.ones(T, dtype=torch.int32, device=cuda), 0)
+    kw = dict(n_tiles=T, tiles_x=tx, n_channels=1, planar=False)
+    got = pb.blend_instances_cuda(*args, **kw)
+    want = pb.blend_instances_plain(*args, **kw)
+    torch.cuda.synchronize()
+    idx = torch.as_tensor(p, device=cuda)
+    assert bool((want[torch.arange(T, device=cuda), 1, idx] > 0).all())
+    assert torch.equal(got[:, 1] > 0, want[:, 1] > 0)
 
 
 @pytest.mark.parametrize("C", [1, 19, 32])
@@ -349,7 +410,8 @@ def test_blend_kernel_channels_layouts_and_tile_cap(cuda, C, planar):
     assert float(want.max()) > 0.1
 
 
-@pytest.mark.parametrize("w,h,cluster", [(512, 512, 0), (208, 144, 0), (256, 128, 1500)])
+@pytest.mark.parametrize("w,h,cluster", [(512, 512, 0), (208, 144, 0), (256, 128, 1500),
+                                         (1224, 1024, 1500)])
 def test_blend_checkpoint_mode_matches_d1_and_plain(cuda, w, h, cluster):
     """Kernel C's checkpoint mode: the same output as without, checkpoints
     equal to D1's bit for bit (the same serial product) and to the plain
@@ -373,7 +435,7 @@ def test_blend_checkpoint_mode_matches_d1_and_plain(cuda, w, h, cluster):
     assert int(want.n_chunks) > int((inst.counts > 0).sum())   # tiles of several chunks
 
 
-@pytest.mark.parametrize("w,h", [(512, 512), (208, 144)])
+@pytest.mark.parametrize("w,h", [(512, 512), (208, 144), (1224, 1024)])
 def test_backward_on_forward_checkpoints_matches_plain(cuda, w, h):
     """The backward without D1: D1s and D2 on kernel C's checkpoints against
     the plain kernel D."""

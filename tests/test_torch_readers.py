@@ -153,20 +153,6 @@ def test_orbit_cameras_match_jax(zju):
             _assert_value_equal(getattr(a, f), getattr(b, f), f)
 
 
-@pytest.mark.parametrize("layout", ["smc", "colmap", "blender"])
-def test_unported_formats_raise(tmp_path, layout):
-    root = tmp_path / "scene"
-    root.mkdir()
-    if layout == "smc":
-        root = tmp_path / "subject.smc"
-    elif layout == "colmap":
-        (root / "sparse").mkdir()
-    else:
-        (root / "transforms_train.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TR.load_scene_info(str(root))
-
-
 def test_native_loader_matches_jax_binding(images):  # noqa: F811
     assert TN.native_available() and JN.native_available()
     assert TN._SO != JN._SO

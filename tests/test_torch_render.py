@@ -195,12 +195,12 @@ def test_interop_state_roundtrip(setup):
 
 def test_package_imports_no_jax():
     """Importing the port loads neither jax nor mygauhuman_tpu, nor the
-    image libraries cv2 and imageio (the readers import those inside the
-    functions that use them): all are blocked in sys.modules first, so any
-    import of them raises."""
+    image libraries cv2 and imageio, nor h5py (the readers import those
+    inside the functions that use them): all are blocked in sys.modules
+    first, so any import of them raises."""
     code = (
         "import sys\n"
-        "blocked = ('jax', 'mygauhuman_tpu', 'cv2', 'imageio')\n"
+        "blocked = ('jax', 'mygauhuman_tpu', 'cv2', 'imageio', 'h5py')\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in blocked]:\n"
         "    del sys.modules[m]\n"
         "for m in blocked:\n"
@@ -210,6 +210,11 @@ def test_package_imports_no_jax():
         "import mygauhuman_torch.cli.train, mygauhuman_torch.cli.render\n"
         "import mygauhuman_torch.cli.metrics, mygauhuman_torch.data.readers\n"
         "import mygauhuman_torch.data.scene, mygauhuman_torch.train.checkpoint\n"
+        "import mygauhuman_torch.models.smplx, mygauhuman_torch.data.smc_reader\n"
+        "import mygauhuman_torch.data.dna_rendering, mygauhuman_torch.data.colmap\n"
+        "import mygauhuman_torch.data.colmap_loader, mygauhuman_torch.data.blender\n"
+        "import mygauhuman_torch.utils.network_gui, mygauhuman_torch.cli.convert\n"
+        "import mygauhuman_torch.cli.full_eval\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
         "       and m.split('.')[0] in blocked]\n"
         "sys.exit(1 if bad else 0)\n"
