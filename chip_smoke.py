@@ -82,12 +82,12 @@ Phases, each of which must pass (any failure exits non-zero):
      synthetic SMPL-X body at 10,475 vertices; an .smc file with h5py where
      it is installed, else the port's SMCReader accessors over the same
      arrays in memory) and its SMPL-X npz; `cli.train --smpl_type smplx` for
-     600 iterations (frames 1224x1024, kernel C tile-major in checkpoint
-     mode in the step; saves at 300 and 600, eval at 600): wall time, ms per
+     500 iterations (frames 1224x1024, kernel C tile-major in checkpoint
+     mode in the step; saves at 250 and 500, eval at 500): wall time, ms per
      iteration, Gaussians, launches (no planar blend, no D1, one kernel B
      backward per iteration), the overflow counters of each logged step,
      test PSNR; every kernel against its plain version on the inputs of the
-     CLI's own step at chkpnt600 (A at the state's capacity x 10,475 refs,
+     CLI's own step at chkpnt500 (A at the state's capacity x 10,475 refs,
      B forward and backward bit-equal, C tile-major with its checkpoints
      against D1's, D1s + D2), the step twice bit-equal and its profile; a
      branch-A step on a 128^2 SMPL-X scene (1,000 Gaussians) on the card
@@ -95,12 +95,42 @@ Phases, each of which must pass (any failure exits non-zero):
      bit-equal to the eval's deform transforms, the replay image bit-equal
      to a replay of them) and `cli.metrics` (within 1e-4 of the same metric
      in memory);
-  9. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line (`launches`: the SMPL-X run's, and every number
-     measured on the inputs of its step at chkpnt600, the planar kernel C
-     (not on that path) on a branch-B step at chkpnt1200; the other paths'
-     launches in `launches_by_path`), the card line, and as the last line
-     {"ok": true, "device": {...}}.
+  9. the tile-sharded multi-device path on 2 ranks started by
+     `python -m torch.distributed.run` (this script with `--mc-worker`): on
+     one card both ranks run on cuda:0 over gloo (NCCL refuses two ranks
+     on one device), on two or more cards on distinct cards over NCCL;
+     (a) rasterize_sharded at the bench point against the single-device
+     rasterize on the same card (image, alpha, final_t within 2e-5, depth
+     1e-4, radii equal, no exchange overflow, opacity and feature
+     gradients within rtol 1e-4 + atol 1e-5); (b) in turns, one rank at a
+     time, every kernel on the rank's own inputs of the sharded step:
+     kernel C planar in checkpoint mode at the rank's strip tile_base
+     (0 / 512 at 512^2) against its plain version and D1's checkpoints,
+     D1s + D2 on its backward, A and B (and B's backward) on the rank's
+     capacity slice, kernel C tile-major in checkpoint mode on a 1224x1024
+     frame's strip (tile_base 0 / 2,464); (d) the sharded branch-B step
+     for 20 iterations on phase 7's state and an occlusion baked for it
+     (passed through a file) against the single-device step: after one
+     step the materials within 1e-4 of the largest value (roughness but
+     at 1% of its entries, within 1e-3), over the 20 iterations the losses
+     and the light within 1e-3, the geometry bit-equal; (c) cli.train
+     --multichip for 600 iterations on 2 ranks against 1 rank (the
+     single-device step): the same densify iterations and capacities,
+     iteration 1's loss within 1e-5, the losses of iterations 1-20 within
+     2e-3 relative (the JAX loop test's bound, where the runs differ by
+     rounding alone), and past them fixed ceilings on the drift that 600
+     iterations of training make of that rounding: the losses of
+     iterations 1-100 within 5e-3 relative, the alive counts at the densify
+     events within 0.5%, the PSNR at 600 within 0.5 dB; ms/iteration of both, the
+     exchange bytes, the collectives' and the state gather's time per
+     step, the sharded step twice bit-equal, each rank's launches;
+ 10. each kernel's time lost on the main paths from its device time, a
+     `kernels` JSON line (`launches`: rank 0's in the 2-rank cli.train
+     --multichip run, and every number measured on rank 1's inputs of the
+     sharded step, its strip at a non-zero tile_base: kernel C planar in
+     checkpoint mode at 512^2, tile-major (not on that path) on the
+     1224x1024 strip; the other paths' launches in `launches_by_path`),
+     the card line, and as the last line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -156,9 +186,32 @@ DNA_DIR = CLI_DIR / "dna"
 # to 1224 x 1024), the real SMPL-X vertex count, 6 cameras x 4 frames
 DNA = dict(cams=6, frames=4, width=2448, height=2048, verts=10475, dist=3.0, seed=0,
            gt_scale=0.006)
-DNA_ITERS = 600            # cut from the 1,200-iteration budget for the script's time
-DNA_MID = 300              # the run's other save
+DNA_ITERS = 500            # cut from the 1,200-iteration budget for the script's time
+DNA_MID = 250              # the run's other save
 DNA_SMALL = dict(size=128, verts=1000)    # its GPU vs CPU step
+MC_RANKS = 2               # the multichip phase's ranks (on one card: both on cuda:0)
+MC_DIR = CLI_DIR / "multichip"
+MC_ITERS = 600             # cli.train --multichip: densify at 400, 500 and 600
+MC_EXACT_ITERS = 20        # iterations whose losses are held to MC_LOSS_RTOL (1 rank vs 2)
+MC_LOSS_RTOL = 2e-3        # tests/test_determinism_multichip.py:254-255
+# ceilings on the drift of 1 rank vs 2 over MC_ITERS: another order of the
+# same float32 sums, amplified by Adam and the densify thresholds (two 1-rank
+# runs one float32 step apart in xyz drifted 4.9e-3 / 0.22% / 0.43 dB on an
+# H100, PERF.md 6.1)
+MC_LOSS_ITERS = 100        # iterations whose losses are held to MC_LOSS_CEIL
+MC_LOSS_CEIL = 5e-3        # relative
+MC_ALIVE_CEIL = 5e-3       # relative, the alive counts at each densify event
+MC_PSNR_CEIL = 0.5         # dB, the test PSNR at MC_ITERS
+MC_PBR_ITERS = 20          # the sharded branch-B step's iterations
+MC_PBR_DEGREE = 1          # the SH degree at iteration 1,200 and past it
+KINK_SHARE = 0.01          # roughness entries past 1e-4 after a step (2 of 150 alive there)
+MC_WIDE = (1224, 1024)     # a frame whose strips are not whole planar tile rows
+MC_EXCHANGE = 16384        # cli.train's default --exchange_capacity
+MC_TIMED_STEPS = 10        # sharded steps timed with the card synchronised per collective
+RASTER_ATOL = 2e-5         # tests/test_raster_sharded.py:80-96 (depth 1e-4)
+RASTER_DEPTH_ATOL = 1e-4
+RASTER_GRAD_RTOL = 1e-4    # the JAX planar test's gradient tolerance
+RASTER_GRAD_ATOL = 1e-5
 # each kernel's own CUDA kernels, by name, for its device time
 KERNEL_KEYS = {
     "knn": ("knn_kernel",),
@@ -1612,7 +1665,8 @@ def pbr_phase(dev, n_sm):
         if worker.is_alive():
             worker.terminate()
             worker.join()
-    return {"cli_train_pbr": pbr_launches, "cli_render_relight": relight_launches}, report
+    return ({"cli_train_pbr": pbr_launches, "cli_render_relight": relight_launches}, report,
+            (ts, pbr_state))
 
 
 class MemGroup(dict):
@@ -2008,7 +2062,7 @@ def dna_phase(dev, n_sm, card):
                 "cli.render --use_replay_cache ran the deform chain")
 
     # the replay cache: bit for bit the eval's deform transforms (the state at
-    # chkpnt600 with its MLPs, on the test view), and cli.render's replay
+    # chkpnt500 with its MLPs, on the test view), and cli.render's replay
     # image bit for bit a replay render of the compacted state with them
     model = made["step"][0][0]
     info = made["info_result"]
@@ -2064,6 +2118,511 @@ def dna_phase(dev, n_sm, card):
             "cli.metrics' PSNR is beyond 8-bit quantisation of results.json's")
     return {"smplx_dna": launches, "smplx_dna_render_deform": render_launches["deform"],
             "smplx_dna_render_replay": render_launches["replay"]}, report
+
+
+# ---- phase 9: the tile-sharded multi-device path ------------------------------
+# 2 ranks: on one card both run on cuda:0 over gloo (NCCL refuses two ranks
+# on one device); with two or more cards, on distinct cards over NCCL
+
+
+def torchrun(nproc, part, *extra, timeout=900):
+    """Run this script's multichip worker `part` on nproc ranks through
+    torch.distributed.run, relay the ranks' report lines, fail on a
+    non-zero exit; returns the launch's wall seconds and each rank's JSON."""
+    import sys
+
+    MC_DIR.mkdir(parents=True, exist_ok=True)
+    log = MC_DIR / f"{part}-{nproc}.log"
+    for f in MC_DIR.glob(f"{part}-{nproc}-rank*.json"):
+        f.unlink()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), str(Path(__file__).resolve()), "--mc-worker", part,
+           *extra]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=str(Path(__file__).resolve().parent),
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:   # the launcher and its ranks, all of them
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    for line in text.splitlines():
+        if line.startswith("[") and not line.startswith("[W"):
+            print(line, flush=True)
+    require(proc.returncode == 0,
+            f"multichip {part} on {nproc} ranks exited {proc.returncode}:\n{text[-6000:]}")
+    return wall, [json.loads((MC_DIR / f"{part}-{nproc}-rank{r}.json").read_text())
+                  for r in range(nproc)]
+
+
+def mc_scene(dev):
+    """The bench point's scene (512^2, 6,890 SMPL vertices, capacity 8,192,
+    seed 0), the CLI's raster config, and a fresh state with its optimizer."""
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+
+    cfg = RasterizerConfig(tile_capacity=1024, chunk_tiles=64,
+                           instance_capacity=4 * BENCH["capacity"])
+    scene = make_synthetic_scene(n_views=BENCH["views"], width=BENCH["width"],
+                                 height=BENCH["height"], n_verts=BENCH["n_verts"],
+                                 capacity=BENCH["capacity"], seed=BENCH["seed"],
+                                 raster_config=cfg, device=dev)
+    return scene, cfg
+
+
+def in_turn(fn):
+    """fn() on each rank in rank order (the ranks' lines do not interleave)."""
+    import torch.distributed as dist
+
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            fn()
+        dist.barrier()
+
+
+def mc_raster_check(mesh, scene, cfg, tag):
+    """(a) rasterize_sharded against the single-device rasterize on the same
+    card: outputs, counters and gradients of opacity and features."""
+    import torch
+
+    from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.ops.rasterize import rasterize
+    from mygauhuman_torch.parallel.raster import rasterize_sharded
+
+    st = scene.gt_state
+    p = st.params
+    cam = scene.batches[0].camera
+    geo = dict(width=cam.width, height=cam.height, tan_fovx=cam.tan_fovx,
+               tan_fovy=cam.tan_fovy, config=cfg, alive=st.alive)
+    means, cov6 = p.xyz.detach(), G.get_covariance6(p).detach()
+    bg = torch.zeros(3, device=means.device)
+
+    def run(sharded):
+        op = G.get_opacity(p)[:, 0].detach().requires_grad_(True)
+        ft = (p.features_dc[:, 0, :] * 0.28209479177387814 + 0.5).detach().requires_grad_(True)
+        if sharded:
+            out = rasterize_sharded(means, cov6, op, ft, cam.w2c, cam.full_proj, bg, mesh=mesh,
+                                    exchange_capacity=MC_EXCHANGE, **geo)
+        else:
+            out = rasterize(means, cov6, op, ft, cam.w2c, cam.full_proj, bg, **geo)
+        loss = (((out.image - 0.3) ** 2).sum() + (out.alpha ** 2).sum()
+                + 0.1 * out.depth.sum())
+        return out, torch.autograd.grad(loss, (op, ft))
+
+    ref, g_ref = run(False)
+    out, g = run(True)
+    torch.cuda.synchronize()
+    err = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+           for k in ("image", "alpha", "depth", "final_t")}
+    radii_equal = bool(torch.equal(out.radii, ref.radii))
+    g_err = [float(((a - b).abs() - RASTER_GRAD_RTOL * b.abs()).max()) for a, b in zip(g, g_ref)]
+    ms_single = cuda_ms(lambda: run(False), reps=5, warmup=1)
+    ms_sharded = cuda_ms(lambda: run(True), reps=5, warmup=1)
+    in_turn(lambda: print(f"{tag} (a) rasterize_sharded vs rasterize at {cam.width}x{cam.height}: max abs err "
+          f"{err}, radii equal {radii_equal}, overflow tiles/gauss/inst "
+          f"{int(out.overflow_tiles)}/{int(out.overflow_gauss)}/{int(out.overflow_inst)} "
+          f"(single {int(ref.overflow_tiles)}/{int(ref.overflow_gauss)}/"
+          f"{int(ref.overflow_inst)}); gradient errors past rtol {RASTER_GRAD_RTOL}: opacity "
+          f"{g_err[0]:.3e}, features {g_err[1]:.3e} (atol {RASTER_GRAD_ATOL}); forward + "
+          f"backward {ms_sharded:.3f} ms sharded, {ms_single:.3f} ms single-device",
+          flush=True))
+    require(max(err["image"], err["alpha"], err["final_t"]) <= RASTER_ATOL
+            and err["depth"] <= RASTER_DEPTH_ATOL and radii_equal,
+            f"rasterize_sharded differs from rasterize: {err}, radii equal {radii_equal}")
+    require(int(out.overflow_inst) == 0, f"exchange overflow {int(out.overflow_inst)}")
+    require(max(g_err) <= RASTER_GRAD_ATOL, f"sharded gradients differ: {g_err}")
+    return dict(err=err, grad_err=g_err, ms_sharded=ms_sharded, ms_single=ms_single)
+
+
+def mc_checks(rt, mesh, pbr_inputs):
+    """(a) the rasterizer, (b) every kernel on this rank's own inputs of the
+    sharded step (in turns, one rank at a time, so that no rank's timing
+    shares the card), (d) the sharded branch-B step for MC_PBR_ITERS
+    iterations on phase 7's state."""
+    import torch
+    import torch.distributed as dist
+
+    import mygauhuman_torch.models.lbs as lbs_mod
+    import mygauhuman_torch.ops.pallas_blend as pb
+    import mygauhuman_torch.ops.pallas_blend_bwd as pbb
+    import mygauhuman_torch.ops.pallas_deform as pd
+    from mygauhuman_torch.data.synthetic import look_at_camera
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.parallel.raster import rasterize_sharded
+    from mygauhuman_torch.parallel.train import (
+        make_tile_sharded_pbr_step,
+        make_tile_sharded_train_step,
+        stack_batches,
+    )
+
+    dev, r = rt.device, rt.rank
+    tag = f"[multichip r{r}]"
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    scene, cfg = mc_scene(dev)
+    out = {"raster": mc_raster_check(mesh, scene, cfg, tag)}
+
+    # (b) the sharded step's own calls: kernel C planar in checkpoint mode at
+    # this rank's strip, D1s + D2 on its backward, A and B on its slice; and
+    # kernel C tile-major on a 1224x1024 frame's strip
+    train = make_trainer(scene, cfg, dev)
+    step = make_tile_sharded_train_step(scene.smpl_model, train["tx"], train["opt"], cfg,
+                                        bg=torch.zeros(3, device=dev), mesh=mesh,
+                                        exchange_capacity=MC_EXCHANGE,
+                                        lpips_fn=train["lpips"], lpips_crop=train["crop"])
+    seen, wide = {}, {}
+    with capture(lbs_mod, "knn", seen), capture(lbs_mod, "deform_rows", seen), \
+            capture(pb, "blend_instances_cuda", seen), \
+            capture(pbb, "blend_tiles_bwd_from_ckpt_raw", seen), \
+            capture(pd, "deform_rows_bwd_cuda", seen):
+        step.loss_and_grads(train["ts"], stack_batches([scene.batches[0]]), 0)
+    b0 = scene.batches[0]
+    cam = look_at_camera(b0.camera.cam_center.cpu().numpy(),
+                         scene.big_pose_verts.mean(0).cpu().numpy(), *MC_WIDE, device=dev)
+    p = scene.gt_state.params
+    op = G.get_opacity(p)[:, 0].detach().requires_grad_(True)
+    with capture(pb, "blend_instances_cuda", wide):
+        o = rasterize_sharded(p.xyz, G.get_covariance6(p), op, p.features_dc[:, 0, :],
+                              cam.w2c, cam.full_proj, torch.zeros(3, device=dev), mesh=mesh,
+                              width=cam.width, height=cam.height, tan_fovx=cam.tan_fovx,
+                              tan_fovy=cam.tan_fovy, config=cfg, alive=scene.gt_state.alive)
+        o.image.sum().backward()
+    report = {}
+    for turn in range(rt.world_size):
+        if turn == r:
+            (data, starts, counts, tile_base), kw = seen["blend_instances_cuda"]
+            require(kw["planar"] and kw["checkpoints"], f"{tag} the step's blend is not planar "
+                    "in checkpoint mode")
+            print(f"{tag} tile_base {tile_base}: strip of {kw['n_tiles']} tiles at 512x512, "
+                  f"{int(counts.sum())} instances blended of the {data.shape[1]} exchange "
+                  f"columns received", flush=True)
+            check_kernel_c(f"r{r} strip tile_base {tile_base} planar", data, starts, counts,
+                           tile_base, kw, pb, pbb, report=report, ckpt_report=True)
+            check_kernel_d(f"r{r} strip tile_base {tile_base}",
+                           seen["blend_tiles_bwd_from_ckpt_raw"], kw["n_channels"], report,
+                           pb, pbb, main=True)
+            (q, refs), kwa = seen["knn"]
+            check_kernel_a(f"r{r} slice", q, refs, kwa.get("k", 1),
+                           kwa.get("exclude_self", False), n_sm, report)
+            check_kernel_b(f"r{r} slice", seen["deform_rows"][0], n_sm, report)
+            check_kernel_b_bwd(seen["deform_rows_bwd_cuda"], report, label=f"r{r} slice")
+            (data, starts, counts, tile_base), kw = wide["blend_instances_cuda"]
+            require(not kw["planar"] and kw["checkpoints"],
+                    f"{tag} the {MC_WIDE} strip is not tile-major in checkpoint mode")
+            print(f"{tag} tile_base {tile_base}: strip of {kw['n_tiles']} tiles at "
+                  f"{MC_WIDE[0]}x{MC_WIDE[1]}", flush=True)
+            check_kernel_c(f"r{r} strip tile_base {tile_base} tile-major {MC_WIDE}", data,
+                           starts, counts, tile_base, kw, pb, pbb, report=report,
+                           ckpt_report=True, name="blend_fwd_tiles")
+            out["tile_base"] = [int(seen["blend_instances_cuda"][0][3]), int(tile_base)]
+        dist.barrier()
+
+    # (d) branch B: the sharded step for MC_PBR_ITERS iterations on phase
+    # 7's state and occlusion; rank 0 keeps the result for the comparison
+    a = torch.load(pbr_inputs, weights_only=False)
+    a = to_dev(a, dev)
+    pstep = make_tile_sharded_pbr_step(a["smpl_model"], a["tx"], a["light_tx"], a["cfg"], cfg,
+                                       bg=torch.zeros(3, device=dev), mesh=mesh,
+                                       exchange_capacity=MC_EXCHANGE,
+                                       lpips_fn=LPIPS(device=dev))
+    ts, pbr = a["ts"], a["pbr_state"]
+    batch = stack_batches([a["batch"]])
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MC_PBR_ITERS):
+        ts, pbr, m = pstep(ts, pbr, batch, a["knn3"], a["occ"][None], a["prefilter_w"],
+                           MC_PBR_DEGREE)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = to_dev(ts.gauss.params, torch.device("cpu"))
+    out["pbr_ms"] = 1e3 * (time.perf_counter() - t0) / MC_PBR_ITERS
+    out["pbr_losses"] = losses
+    in_turn(lambda: print(f"{tag} (d) sharded branch-B step: {MC_PBR_ITERS} iterations at "
+                          f"capacity {ts.gauss.capacity}, {out['pbr_ms']:.2f} ms/iteration (the "
+                          f"loss read every iteration), last loss {losses[-1]:.6f}", flush=True))
+    if r == 0:
+        torch.save(dict(first=first, final=to_dev((ts, pbr), torch.device("cpu"))),
+                   MC_DIR / "pbr_sharded.pt")
+    out["report"] = report
+    return out
+
+
+def mc_cli(rt, mesh, argv):
+    """(c) cli.train on this launch's ranks: its launches, the losses of the
+    first MC_LOSS_ITERS iterations, its densify events and PSNR; on more
+    than one rank, then the sharded step's collectives and state gather per
+    step (timed, the card synchronised around each) and the same step
+    twice from the trained state, bit for bit."""
+    import torch
+
+    from mygauhuman_torch.cli import train as cli_train
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.parallel import mesh as pm
+    from mygauhuman_torch.parallel.train import make_tile_sharded_train_step, stack_batches
+    from mygauhuman_torch.train import trainer as TT
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    losses = {}
+
+    def logged(orig):
+        def run(ts, *args, callback=None, **kw):
+            def cb(it, ts, m):
+                if it <= MC_LOSS_ITERS:
+                    losses[it] = float(m["loss"])
+                callback(it, ts, m)
+            return orig(ts, *args, callback=cb, **kw)
+        return run
+
+    cuda_lib.reset_launches()
+    with patched(TT, "train_loop", logged):
+        res = cli_train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    tag = f"[multichip r{rt.rank}/{rt.world_size}]"
+    print(f"{tag} cli.train --multichip: {res['last_iteration']} iterations in "
+          f"{res['elapsed_s']:.3f} s ({1e3 * res['elapsed_s'] / res['last_iteration']:.3f} "
+          f"ms/iteration), mesh {res['mesh']}, test PSNR {res['test_psnr']:.4f}, "
+          f"{res['n_gaussians']} Gaussians, capacity {res['capacity']}; launches {launches}",
+          flush=True)
+    out = dict(losses=losses, densify=res["densify"], psnr=res["test_psnr"],
+               elapsed_s=res["elapsed_s"], iterations=res["last_iteration"],
+               launches=launches, mesh=res["mesh"], phases=res["phases"])
+    if mesh is None:
+        return out
+    dev = rt.device
+    scene = cli_train.synthetic_scene(CLI_SCENE["views"], CLI_SCENE["size"],
+                                      CLI_SCENE["verts"], dev)
+    ts = res["state"]
+    step = make_tile_sharded_train_step(
+        scene.smpl_model, TT.Adam(TT.OptimizationConfig()), TT.OptimizationConfig(),
+        scene.raster_config, bg=torch.zeros(3, device=dev), mesh=mesh,
+        exchange_capacity=MC_EXCHANGE, lpips_fn=LPIPS(device=dev),
+        lpips_crop=TT.scene_lpips_crop([b.bound_mask for b in scene.batches]))
+    batch = stack_batches([scene.batches[0]])
+    torch.distributed.barrier()     # rank 0's eval at the last iteration is not timed
+    pm.reset_stats()
+    pm.TIMED[0] = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MC_TIMED_STEPS):
+        s1, _ = step(ts, batch, 0)
+    torch.cuda.synchronize()
+    pm.TIMED[0] = False
+    out["timed_ms"] = 1e3 * (time.perf_counter() - t0) / MC_TIMED_STEPS
+    out["per_step"] = {k: {"calls": v["calls"] / MC_TIMED_STEPS,
+                           "bytes": v["bytes"] / MC_TIMED_STEPS,
+                           "ms": 1e3 * v["seconds"] / MC_TIMED_STEPS}
+                       for k, v in pm.STATS.items()}
+    coll_ms = sum(v["ms"] for k, v in out["per_step"].items() if k != "state_gather")
+    print(f"{tag} sharded step at capacity {ts.gauss.capacity}, {MC_TIMED_STEPS} steps with "
+          f"the card synchronised around each collective: {out['timed_ms']:.3f} ms/step; per "
+          f"step: exchange {out['per_step']['all_to_all']['bytes'] / 1e6:.3f} MB forward + "
+          f"{out['per_step']['all_to_all_bwd']['bytes'] / 1e6:.3f} MB backward, collectives "
+          f"{coll_ms:.3f} ms, state gather {out['per_step']['state_gather']['ms']:.3f} ms "
+          f"({out['per_step']['state_gather']['bytes'] / 1e6:.3f} MB); by kind "
+          f"{out['per_step']}", flush=True)
+    s2, m2 = step(ts, batch, 0)
+    s3, m3 = step(ts, batch, 0)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(TT.trainable_params(s2)),
+                                                  tree_leaves(TT.trainable_params(s3)))) \
+        and torch.equal(s2.gauss.xyz_grad_accum, s3.gauss.xyz_grad_accum) \
+        and float(m2["loss"]) == float(m3["loss"])
+    print(f"{tag} the sharded step twice from the trained state: bit-equal {same}", flush=True)
+    require(same, f"{tag} the sharded step twice differs")
+    return out
+
+
+def mc_worker(argv):
+    """One rank of a torch.distributed.run launch of this script."""
+    import torch
+
+    from mygauhuman_torch.parallel.mesh import init_distributed, make_hybrid_mesh
+
+    part, rest = argv[0], argv[1:]
+    torch.backends.cudnn.allow_tf32 = False
+    rt = init_distributed(device="cuda")
+    mesh = make_hybrid_mesh(rt=rt) if rt.world_size > 1 else None
+    if rt.rank == 0:
+        print(f"[multichip] {part}: {rt.world_size} ranks, backend {rt.backend}, mesh "
+              f"{mesh.shape if mesh else None}, {torch.cuda.device_count()} card(s), rank 0 on "
+              f"{rt.device}", flush=True)
+    out = mc_checks(rt, mesh, rest[0]) if part == "checks" else mc_cli(rt, mesh, rest)
+    (MC_DIR / f"{part}-{rt.world_size}-rank{rt.rank}.json").write_text(json.dumps(out))
+    if rt.world_size > 1:
+        torch.distributed.destroy_process_group()
+
+
+def mc_pbr_inputs(dev, pbr_final, scene):
+    """(d)'s inputs, through a file: phase 7's final state and light, view
+    0's occlusion baked on the card under that light, the KNN neighbours and
+    the prefilter weights."""
+    import torch
+
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.occlusion import baking
+    from mygauhuman_torch.pbr.light import export_envmap, prefilter_weight_set
+    from mygauhuman_torch.train import pbr as tpbr
+    from mygauhuman_torch.train.optim import Adam
+
+    ts, pbr_state = pbr_final
+    b0 = scene.batches[0]
+    m, c6, op, wn = tpbr._pose_for_bake(ts, b0, scene.smpl_model)
+    occ, _, _ = baking.bake_occlusion_full(m, c6, op, wn, ts.gauss.alive, height=16, width=32)
+    with torch.no_grad():
+        env = export_envmap(pbr_state.light, 16, 32)
+        occ_col = baking.occlusion_color(torch.round(occ * 255.0) / 255.0,
+                                         env.mean(dim=-1, keepdim=True))
+    cfg = OptimizationConfig(iterations=CLI_ITERS + PBR_ITERS, pbr_iteration=CLI_ITERS)
+    a = dict(ts=ts, pbr_state=pbr_state, batch=b0, knn3=tpbr.compute_knn3(ts.gauss),
+             occ=occ_col, prefilter_w=prefilter_weight_set(pbr_state.light["base"].shape[1],
+                                                           dev),
+             smpl_model=scene.smpl_model, tx=Adam(cfg), light_tx=tpbr.LightAdam(cfg.opacity_lr),
+             cfg=cfg)
+    path = MC_DIR / "pbr_inputs.pt"
+    MC_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(to_dev(a, torch.device("cpu")), path)
+    return a, path
+
+
+def multichip_phase(dev, n_sm, card, pbr_final):
+    """(a)-(d) on MC_RANKS ranks (module docstring, phase 9). Returns the
+    launches of the 2-rank cli.train run's ranks and rank 1's kernel report
+    (its strip has the non-zero tile_base)."""
+    import torch
+
+    from mygauhuman_torch.cli import train as cli_train
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.train import pbr as tpbr
+
+    shutil.rmtree(MC_DIR, ignore_errors=True)
+    scene = cli_train.synthetic_scene(CLI_SCENE["views"], CLI_SCENE["size"],
+                                      CLI_SCENE["verts"], dev)
+    a, pbr_path = mc_pbr_inputs(dev, pbr_final, scene)
+    print(f"[multichip] {MC_RANKS} ranks on {torch.cuda.device_count()} card(s): backend "
+          f"{'gloo (ranks share cuda:0)' if torch.cuda.device_count() < MC_RANKS else 'nccl'}; "
+          f"{card}", flush=True)
+
+    wall, checks = torchrun(MC_RANKS, "checks", str(pbr_path))
+    print(f"[multichip] (a), (b), (d) launch: {wall:.1f} s wall; tile_base per rank "
+          f"{[c['tile_base'] for c in checks]}", flush=True)
+
+    # (d) the same iterations single-device, against rank 0's result
+    step = tpbr.make_pbr_train_step(a["smpl_model"], a["tx"], a["light_tx"], a["cfg"],
+                                    scene.raster_config, bg=torch.zeros(3, device=dev),
+                                    lpips_fn=LPIPS(device=dev))
+    ts, pbr = a["ts"], a["pbr_state"]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MC_PBR_ITERS):
+        ts, pbr, m = step(ts, pbr, a["batch"], a["knn3"], a["occ"], a["prefilter_w"],
+                          MC_PBR_DEGREE)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = ts.gauss.params
+    pbr_ms = 1e3 * (time.perf_counter() - t0) / MC_PBR_ITERS
+    got = to_dev(torch.load(MC_DIR / "pbr_sharded.pt", weights_only=False), dev)
+    ts_s, pbr_s = got["final"]
+
+    def err(x, y):
+        """|x - y| over the largest |y|."""
+        return (x - y).abs() / max(float(y.abs().max()), 1e-30)
+
+    # tests/test_torch_pbr_train.py's bounds: after one step the materials
+    # within 1e-4 of the largest value (roughness: but at KINK_SHARE of its
+    # entries, where the BRDF LUT's bilinear slope jumps, and those within
+    # 1e-3); the loop's losses and light within 1e-3
+    e_alb = err(got["first"].albedo, first.albedo)
+    e_rough = err(got["first"].roughness, first.roughness)
+    n_kinks = int((e_rough > 1e-4).sum())
+    e_loss = float(max(abs(a_ - b_) for a_, b_ in zip(checks[0]["pbr_losses"], losses))
+                   / max(abs(x) for x in losses))
+    e_light = float(err(pbr_s.light["base"], pbr.light["base"]).max())
+    geometry = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+    frozen = all(torch.equal(getattr(ts_s.gauss.params, f), getattr(a["ts"].gauss.params, f))
+                 for f in geometry)
+    learned = not torch.equal(pbr_s.light["base"], a["pbr_state"].light["base"])
+    print(f"[multichip] (d) branch B, sharded vs single-device: after one step albedo "
+          f"{float(e_alb.max()):.3e}, roughness {float(e_rough.max()):.3e} of the largest "
+          f"({n_kinks} of {e_rough.numel()} entries past 1e-4); over {MC_PBR_ITERS} iterations "
+          f"losses {e_loss:.3e}, light {e_light:.3e} of the largest; geometry bit-equal to "
+          f"the input {frozen}, light learned {learned}; single-device {pbr_ms:.2f} "
+          f"ms/iteration, 2 ranks {checks[0]['pbr_ms']:.2f} ms/iteration", flush=True)
+    require(float(e_alb.max()) <= 1e-4 and float(e_rough.max()) <= 1e-3
+            and n_kinks <= KINK_SHARE * e_rough.numel() and max(e_loss, e_light) <= 1e-3
+            and frozen and learned, "the sharded branch-B step differs from the single-device "
+            "one")
+
+    launches = mc_cli_compare()
+    return launches, checks[-1]["report"]
+
+
+def mc_cli_compare():
+    """(c): the 2-rank cli.train --multichip against the 1-rank run (the
+    single-device step); returns the 2-rank run's launches per rank."""
+    synth = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
+             str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"])]
+
+    def run(key, n):
+        argv = synth + ["--multichip", "--iterations", str(MC_ITERS), "--test_iterations",
+                        str(MC_ITERS), "--skip_galleries", "--model_path",
+                        str(MC_DIR / f"cli-{key}"), "--device", "cuda"]
+        wall, res = torchrun(n, "cli", *argv, timeout=1200)
+        print(f"[multichip] cli.train --multichip {key}: {n} rank(s), {wall:.1f} s wall",
+              flush=True)
+        return res
+
+    runs = {"one": run("one", 1), "two": run("two", MC_RANKS)}
+    one, two = runs["one"][0], runs["two"][0]
+    ev = lambda r: [(e["iteration"], e["capacity"]) for e in r["densify"]]  # noqa: E731
+    loss_d = {int(k): abs(two["losses"][k] - one["losses"][k]) / abs(one["losses"][k])
+              for k in one["losses"]}
+    exact = max(loss_d[k] for k in range(1, MC_EXACT_ITERS + 1))
+    late = max(loss_d[k] for k in range(1, MC_LOSS_ITERS + 1))
+    past = [k for k in sorted(loss_d) if loss_d[k] > MC_LOSS_RTOL]
+    alive = max(abs(b["alive"] - a["alive"]) / a["alive"]
+                for a, b in zip(one["densify"], two["densify"]))
+    psnr = abs(two["psnr"] - one["psnr"])
+    print(f"[multichip] (c) {MC_ITERS} iterations: 1 rank {1e3 * one['elapsed_s'] / MC_ITERS:.3f}"
+          f" ms/iteration, {MC_RANKS} ranks {1e3 * two['elapsed_s'] / MC_ITERS:.3f} ms/iteration "
+          f"(ranks sharing one card over gloo: contention and host-staged collectives, not "
+          f"scaling); densify events (iteration, capacity, alive) 1 rank "
+          f"{[(e['iteration'], e['capacity'], e['alive']) for e in one['densify']]}, {MC_RANKS} "
+          f"ranks {[e['alive'] for e in two['densify']]}; PSNR at {MC_ITERS} {one['psnr']:.4f} / "
+          f"{two['psnr']:.4f} dB", flush=True)
+    print(f"[multichip] (c) {MC_RANKS} ranks vs 1: loss relative difference at iteration 1 "
+          f"{loss_d[1]:.3e}, at 1-{MC_EXACT_ITERS} at most {exact:.3e} (bound {MC_LOSS_RTOL}), "
+          f"at 1-{MC_LOSS_ITERS} at most {late:.3e} (ceiling {MC_LOSS_CEIL}; first past "
+          f"{MC_LOSS_RTOL} at iteration {past[0] if past else None}); by iteration "
+          f"{[f'{loss_d[k]:.2e}' for k in range(1, MC_LOSS_ITERS + 1)]}; alive counts "
+          f"{alive:.3e} apart (ceiling {MC_ALIVE_CEIL}), PSNR {psnr:.4f} dB (ceiling "
+          f"{MC_PSNR_CEIL})", flush=True)
+    require(ev(one) == ev(two) and len(ev(one)) > 0,
+            "the densify events differ in iteration or capacity")
+    require(loss_d[1] <= 1e-5, f"iteration 1's loss differs by {loss_d[1]} relative")
+    require(exact <= MC_LOSS_RTOL,
+            f"the losses of iterations 1-{MC_EXACT_ITERS} differ by {exact} relative")
+    require(late <= MC_LOSS_CEIL and alive <= MC_ALIVE_CEIL and psnr <= MC_PSNR_CEIL,
+            f"{MC_RANKS} ranks drift from 1 rank past the ceilings: loss {late}, alive "
+            f"{alive}, PSNR {psnr} dB")
+    for r, run in enumerate(runs["two"]):
+        ln = run["launches"]
+        print(f"[multichip] rank {r} launches in the {MC_RANKS}-rank cli.train: {ln}",
+              flush=True)
+        for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+                     "blend_bwd_sums", "blend_bwd_rows"):
+            require(ln[name] > 0, f"rank {r}: kernel {name} was not launched")
+        require(ln["blend_bwd_ckpt"] == 0 and ln["blend_fwd_ckpt"] == ln["blend_bwd"]
+                and ln["deform_bwd"] == MC_ITERS,
+                f"rank {r}: D1 launched, or a forward without its backward: {ln}")
+    return {f"multichip_r{r}": run["launches"] for r, run in enumerate(runs["two"])}
 
 
 def main() -> None:
@@ -2357,7 +2916,7 @@ def main() -> None:
 
     # ---- phase 7: branch B and relighting through the entry points ---------
     t0 = time.perf_counter()
-    pbr_launches, pbr_report = pbr_phase(dev, n_sm)
+    pbr_launches, pbr_report, pbr_final = pbr_phase(dev, n_sm)
     print(f"[pbr] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 8: the SMPL-X body on a DNA-Rendering capture -----------------
@@ -2365,20 +2924,25 @@ def main() -> None:
     dna_launches, dna_report = dna_phase(dev, n_sm, card)
     print(f"[dna] phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
-    # ---- phase 9: results --------------------------------------------------
+    # ---- phase 9: the tile-sharded multi-device path ------------------------
+    t0 = time.perf_counter()
+    mc_launches, mc_report = multichip_phase(dev, n_sm, card, pbr_final)
+    print(f"[multichip] phase took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+    # ---- phase 10: results -------------------------------------------------
     # time lost on the main paths, launches x (device ms - bound): the 4 + 4
     # serving frames of phase 3, the 60-iteration loop (kernels B and C: the
     # loop at the training step's capture), cli.train's 1,200 iterations
     # (each kernel at the inputs of the step at chkpnt600, kernel C in its
     # checkpoint mode), its 300 branch-B iterations (each kernel at the
     # inputs of a branch-B step at chkpnt1200, kernel C tile-major at a bake
-    # face) and the SMPL-X run's 600 iterations (each kernel at the inputs of
-    # its step at chkpnt600, kernel C tile-major in checkpoint mode)
+    # face) and the SMPL-X run's 500 iterations (each kernel at the inputs of
+    # its step at chkpnt500, kernel C tile-major in checkpoint mode)
     # `blend_fwd` counts every kernel C launch and `blend_fwd_tiles` the
     # tile-major ones; from here `blend_fwd` is the planar launches (the TPU
     # row kernel's), so each row counts its own layout
     for counts in (serving_launches, loop_launches, *cli_launches.values(),
-                   *pbr_launches.values(), *dna_launches.values()):
+                   *pbr_launches.values(), *dna_launches.values(), *mc_launches.values()):
         counts["blend_fwd"] -= counts["blend_fwd_tiles"]
     cli_train_launches = cli_launches.pop("cli_train")
     pbr_train_launches = pbr_launches.pop("cli_train_pbr")
@@ -2388,8 +2952,9 @@ def main() -> None:
         return "n/a" if entry is None or entry["device_ms"] is None else \
             f"{n * (entry['device_ms'] - entry['bound_ms']):.4f}"
 
+    mc_train_launches = mc_launches["multichip_r0"]
     lost = []
-    for name in sorted(set(report) | set(pbr_report) | set(dna_report)):
+    for name in sorted(set(report) | set(pbr_report) | set(dna_report) | set(mc_report)):
         e = report.get(name)
         loop_e = e and dict(e, device_ms=e.get("loop_device_ms", e["device_ms"]),
                             bound_ms=e.get("loop_bound_ms", e["bound_ms"]))
@@ -2397,25 +2962,26 @@ def main() -> None:
                     f"{lost_ms(loop_e, loop_launches[name])} / "
                     f"{lost_ms(cli_report.get(name), cli_train_launches[name])} / "
                     f"{lost_ms(pbr_report.get(name), pbr_train_launches[name])} / "
-                    f"{lost_ms(dna_report.get(name), dna_train_launches[name])} (launches "
+                    f"{lost_ms(dna_report.get(name), dna_train_launches[name])} / "
+                    f"{lost_ms(mc_report.get(name), mc_train_launches[name])} (launches "
                     f"{serving_launches[name]} / {loop_launches[name]} / "
                     f"{cli_train_launches[name]} / {pbr_train_launches[name]} / "
-                    f"{dna_train_launches[name]})")
+                    f"{dna_train_launches[name]} / {mc_train_launches[name]})")
     print("[lost] ms lost on the main paths from device time, serving / loop / cli.train / "
-          "branch B / SMPL-X: " + "; ".join(lost), flush=True)
-    # this slice's main path is cli.train's 600 iterations on the SMPL-X
-    # capture: `launches` are its counts, and each kernel it runs is measured
-    # on the inputs of its step at chkpnt600 (kernel C tile-major in
-    # checkpoint mode at 1224x1024); the planar kernel C, which it does not
-    # run, keeps the branch-B step's numbers; the other paths' counts beside
-    # them
+          "branch B / SMPL-X / multichip rank 0: " + "; ".join(lost), flush=True)
+    # this slice's main path is cli.train --multichip's 600 iterations on 2
+    # ranks: `launches` are rank 0's counts, and each kernel is measured on
+    # rank 1's inputs of the sharded step (its strip's tile_base is not 0):
+    # kernel C planar in checkpoint mode at 512^2, the tile-major kernel C
+    # (not on this path) on a 1224x1024 frame's strip; the other paths'
+    # counts beside them
     paths = {"serving": serving_launches, "loop": loop_launches,
-             "cli_train": cli_train_launches, **cli_launches, **pbr_launches, **dna_launches}
+             "cli_train": cli_train_launches, **cli_launches, **pbr_launches, **dna_launches,
+             **mc_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: dna_report.get(n, pbr_report.get(n, cli_report.get(n)))[k]
-                     for k in keys},
-                    launches=dna_train_launches[n],
+    kernels = [dict({k: mc_report[n][k] for k in keys},
+                    launches=mc_train_launches[n],
                     launches_by_path={p: c[n] for p, c in paths.items()})
                for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles",
                          "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
@@ -2427,4 +2993,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if "--mc-worker" in sys.argv:
+        mc_worker(sys.argv[sys.argv.index("--mc-worker") + 1:])
+    else:
+        main()

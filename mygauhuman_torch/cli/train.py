@@ -26,8 +26,17 @@ card it raises; nothing falls back to the CPU). `--smpl_type smplx` (or an
 (`models/smplx.py`); the MLPs, the deform chain and the replay cache size
 themselves from its joint count. `--gui` serves the SIBR live viewer
 (`utils/network_gui.py`) between iterations with frames from
-`render_frame`. The feature not ported yet raises NotImplementedError
-naming its ROADMAP Queue 1 item: `--multichip` (item 5).
+`render_frame`. `--multichip` trains with the tile-sharded steps
+(`parallel/train.py`) over the ranks of a `torch.distributed.run` launch:
+
+  python -m torch.distributed.run --nproc_per_node 2 \
+      -m mygauhuman_torch.cli.train --multichip --synthetic ...
+
+on the mesh of `parallel/mesh.py::make_hybrid_mesh` (gloo where ranks
+share a card, NCCL where each has its own), both branches, the exchange
+window `--exchange_capacity`; every rank holds the whole state and runs the
+same schedule, and only rank 0 evaluates and writes files. On one process
+it runs the single-device step, as the JAX CLI does with one device.
 Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
 command returns at once without training), `--scan_chunk` and
 `--occ_budget_mb` (the loops run one step per call, with the same
@@ -106,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted, no effect: the loop runs one step per call; "
                         "the schedule is the same as with any chunk")
     p.add_argument("--multichip", action="store_true",
-                   help="the tile-sharded multi-device step: not ported yet (raises)")
+                   help="the tile-sharded steps over the ranks of a torch.distributed.run "
+                        "launch (one process: the single-device step)")
     p.add_argument("--bake_cells", type=int, default=128,
                    help="voxel cells per occlusion-bake sweep (branch B)")
     p.add_argument("--bake_single_sweep", action="store_true",
@@ -129,17 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+class _NoLogger:
+    """MetricLogger's interface, writing nothing (the ranks past 0)."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    log_image = log
+    close = log
+
+
 def _is_smplx_source(smpl_type: str, source_path: str) -> bool:
     return (smpl_type == "smplx" or source_path.endswith(".smc")
             or "dna_rendering" in source_path.lower())
-
-
-def refuse_unported(args) -> None:
-    """NotImplementedError for a flag whose feature is not ported yet."""
-    if args.multichip:
-        raise NotImplementedError(
-            "--multichip (the tile-sharded multi-device step) is not ported to "
-            "mygauhuman_torch yet (ROADMAP Queue 1 item 5)")
 
 
 def synthetic_scene(n_views: int, size: int, n_verts: int, device, capacity: int = 0):
@@ -179,7 +191,6 @@ def main(argv=None) -> dict:
     PbrState (`pbr_state`) and `pbr` {iterations, elapsed_s,
     bake_out_of_budget} (else None)."""
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
 
     import torch
 
@@ -203,8 +214,22 @@ def main(argv=None) -> dict:
     from mygauhuman_torch.utils.profiling import PhaseTimer
 
     dev = resolve_device(args.device)
+    mesh = None
+    is_main = True
+    if args.multichip:
+        from mygauhuman_torch.parallel.mesh import init_distributed, make_hybrid_mesh
+
+        rt = init_distributed(device=dev)
+        dev, is_main = rt.device, rt.rank == 0
+        if rt.world_size > 1:
+            mesh = make_hybrid_mesh(rt=rt)
+        if is_main:
+            print(f"multichip mesh: {mesh.shape if mesh else dict(data=1, gauss=1, tiles=1)} "
+                  f"({rt.world_size} rank{'s' if rt.world_size > 1 else ''}, backend "
+                  f"{rt.backend or 'none: the single-device step'})", flush=True)
     out_dir = args.model_path or os.path.join("output", args.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(out_dir, exist_ok=True)
     if args.precompile:
         print("precompile: nothing to warm (no compile cache; the CUDA kernels build at "
               "their first launch) — run without --precompile to train")
@@ -309,13 +334,29 @@ def main(argv=None) -> dict:
     bg = torch.ones(3, device=dev) if args.white_background else torch.zeros(3, device=dev)
     # static LPIPS window sized to the scene's largest subject bbox
     lpips_crop = scene_lpips_crop([b.bound_mask for b in train_batches])
-    step_fn = make_train_step(smpl_model, tx, cfg, raster_cfg, bg=bg, lpips_fn=lpips_obj,
-                              lpips_crop=lpips_crop)
-    logger = MetricLogger(out_dir)
+    if mesh is not None:
+        from mygauhuman_torch.parallel.train import (
+            make_tile_sharded_train_step,
+            stack_batches,
+        )
+
+        # one view per iteration, stacked to the step's batch of one
+        base_step = make_tile_sharded_train_step(
+            smpl_model, tx, cfg, raster_cfg, bg=bg, mesh=mesh,
+            exchange_capacity=args.exchange_capacity, lpips_fn=lpips_obj,
+            lpips_crop=lpips_crop)
+
+        def step_fn(ts, batch, deg):
+            return base_step(ts, stack_batches([batch]), deg)
+    else:
+        step_fn = make_train_step(smpl_model, tx, cfg, raster_cfg, bg=bg, lpips_fn=lpips_obj,
+                                  lpips_crop=lpips_crop)
+    # only rank 0 writes: the other ranks log nowhere
+    logger = MetricLogger(out_dir) if is_main else _NoLogger()
     timer = PhaseTimer()
     eval_cache: dict = {}
     gui = None
-    if args.gui:
+    if args.gui and is_main:
         from mygauhuman_torch.utils.network_gui import NetworkGUI
 
         gui = NetworkGUI(args.gui_host, args.gui_port)
@@ -435,10 +476,10 @@ def main(argv=None) -> dict:
             seen["densify"].append({"iteration": it, "capacity": metrics["capacity"],
                                     **{k[len("densify_"):]: v for k, v in metrics.items()
                                        if k.startswith("densify_")}})
-        if it in args.test_iterations:
+        if it in args.test_iterations and is_main:
             with timer.phase("eval"):
                 last_psnr = run_eval(it, ts)
-        if it in args.save_iterations:
+        if it in args.save_iterations and is_main:
             with timer.phase("save"):
                 save_checkpoint(out_dir, it, ts, Config(optim=cfg))
                 save_ply(ts.gauss, os.path.join(out_dir, f"point_cloud_{it}.ply"))
@@ -466,8 +507,19 @@ def main(argv=None) -> dict:
         )
 
         pbr_state, light_tx = create_pbr_state(cfg, device=dev)
-        pbr_step = make_pbr_train_step(smpl_model, tx, light_tx, cfg, raster_cfg, bg=bg,
-                                       lpips_fn=lpips_obj)
+        if mesh is not None:
+            from mygauhuman_torch.parallel.train import make_tile_sharded_pbr_step
+
+            base_pbr = make_tile_sharded_pbr_step(
+                smpl_model, tx, light_tx, cfg, raster_cfg, bg=bg, mesh=mesh,
+                exchange_capacity=args.exchange_capacity, lpips_fn=lpips_obj)
+
+            def pbr_step(ts2, pbr2, batch, knn3, occ_col, pw, deg):
+                return base_pbr(ts2, pbr2, stack_batches([batch]), knn3, occ_col[None], pw,
+                                deg)
+        else:
+            pbr_step = make_pbr_train_step(smpl_model, tx, light_tx, cfg, raster_cfg, bg=bg,
+                                           lpips_fn=lpips_obj)
 
         def pbr_callback(it, ts2, pbr2, m):
             nonlocal last_psnr
@@ -475,10 +527,10 @@ def main(argv=None) -> dict:
             seen["last"] = it
             if it % 100 == 0 or it == 1:    # the phase-A cadence
                 logger.log(it, m, prefix="pbr")
-            if it in args.test_iterations:
+            if it in args.test_iterations and is_main:
                 with timer.phase("eval"):
                     last_psnr = run_eval(it, ts2)
-            if it in args.save_iterations:
+            if it in args.save_iterations and is_main:
                 with timer.phase("save"):
                     save_checkpoint(out_dir, it, (ts2, pbr2), Config(optim=cfg))
                     save_ply(ts2.gauss, os.path.join(out_dir, f"point_cloud_{it}.ply"))
@@ -518,7 +570,8 @@ def main(argv=None) -> dict:
             "first_iteration": seen["first"], "last_iteration": seen["last"],
             "n_gaussians": n_alive, "capacity": ts.gauss.capacity,
             "densify": seen["densify"], "phases": timer.summary(), "state": ts,
-            "pbr_state": pbr_state, "pbr": pbr_record}
+            "pbr_state": pbr_state, "pbr": pbr_record,
+            "mesh": mesh.shape if mesh is not None else None}
 
 
 if __name__ == "__main__":

@@ -464,3 +464,89 @@ def blend_pallas(sorted_rank, order, rank, starts, counts, means2d, conics,
     return BlendOutput(*_BlendPallas.apply(
         sorted_rank, order, rank, starts, counts, means2d, conics, opacities, features,
         depths, bg, width, height, tile_w, tile_h, max_tiles_per_gaussian, differentiated))
+
+
+# ---- the instance-level differentiable blend (the tile-strip entry) ----------
+#
+# blend_pallas differentiates with respect to per-Gaussian inputs and gathers
+# the instance matrix itself, which needs every Gaussian on one device. The
+# tile-sharded rasterizer (parallel/raster.py) holds only the instances the
+# exchange delivered for its strip, so these differentiate with respect to
+# the instance matrix: the exchange's backward routes the rows to their
+# owners.
+
+
+def _strip_cotangent(g, n_channels, cf, planar, n_tiles, tiles_x, tile_w, tile_h):
+    """Kernel D's cotangent layout [T, P, Cf + 3] from the cotangent of a
+    strip blend's output: the feature channels, zeros for the instance
+    matrix's pad rows, then w_sum, d_sum and final_t."""
+    P = tile_w * tile_h
+    if planar:
+        n_rows = n_tiles // tiles_x
+        g = g.reshape(g.shape[0], n_rows, tile_h, tiles_x, tile_w)
+        g = g.permute(1, 3, 2, 4, 0).reshape(n_tiles, P, -1)
+    else:
+        g = g.permute(0, 2, 1)
+    return torch.cat([g[..., :n_channels], g.new_zeros((n_tiles, P, cf - n_channels)),
+                      g[..., n_channels:n_channels + 3]], dim=-1).contiguous()
+
+
+class _BlendInstances(torch.autograd.Function):
+    """Forward: kernel C at `tile_base`, in checkpoint mode when the call is
+    differentiated. Backward: kernel D's D1s and D2 on those checkpoints,
+    returning the instance matrix's cotangent [D, NS]."""
+
+    @staticmethod
+    def forward(ctx, data, starts, counts, tile_base, n_tiles, tiles_x, n_channels, tile_w,
+                tile_h, planar, differentiated):
+        kw = dict(n_tiles=n_tiles, tiles_x=tiles_x, n_channels=n_channels, tile_w=tile_w,
+                  tile_h=tile_h, checkpoints=differentiated)
+        res = _blend_raw(data, starts, counts, tile_base, planar, **kw)
+        if not differentiated:
+            return res
+        out, ckpt = res
+        ctx.save_for_backward(data, starts, counts, *ckpt)
+        ctx.geom = (tile_base, n_tiles, tiles_x, n_channels, tile_w, tile_h, planar)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from mygauhuman_torch.ops.pallas_blend_bwd import blend_tiles_bwd_from_ckpt_raw
+
+        data, starts, counts, *ckpt = ctx.saved_tensors
+        tile_base, n_tiles, tiles_x, C, tile_w, tile_h, planar = ctx.geom
+        cot = _strip_cotangent(g.float(), C, data.shape[0] - HDR, planar, n_tiles, tiles_x,
+                               tile_w, tile_h)
+        rows = blend_tiles_bwd_from_ckpt_raw(data, starts, counts, tile_base, cot,
+                                             Checkpoints(*ckpt), n_tiles=n_tiles,
+                                             tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+                                             n_channels=C)
+        return (rows.T,) + (None,) * 10
+
+
+def _blend_instances(data, starts, counts, tile_base, n_tiles, tiles_x, n_channels, tile_w,
+                     tile_h, planar):
+    differentiated = torch.is_grad_enabled() and data.requires_grad
+    return _BlendInstances.apply(data, starts, counts, int(tile_base), n_tiles, tiles_x,
+                                 n_channels, tile_w, tile_h, planar, differentiated)
+
+
+def blend_instances(data, starts, counts, tile_base, n_tiles, tiles_x, n_channels,
+                    tile_w=16, tile_h=16):
+    """Differentiable tile-major blend of tiles [tile_base, tile_base +
+    n_tiles) of a tiles_x-wide grid: instance matrix [D, NS] -> [n_tiles,
+    C+3, P]. Kernel C forward (checkpoint mode when differentiated) and
+    kernel D (D1s, D2) backward on CUDA tensors, their plain versions on CPU
+    tensors; the gradient is the instance matrix's [D, NS]."""
+    return _blend_instances(data, starts, counts, tile_base, n_tiles, tiles_x, n_channels,
+                            tile_w, tile_h, False)
+
+
+def blend_instances_planar(data, starts, counts, tile_base, n_tiles, tiles_x, n_channels,
+                           tile_w=16, tile_h=16):
+    """blend_instances with the planar output [C+3, (n_tiles / tiles_x)
+    tile_h, tiles_x tile_w], for strips of whole tile rows (where
+    row_mode_supported holds, as the TPU row kernel needs): strips then
+    concatenate along H and finish with finish_planar."""
+    return _blend_instances(data, starts, counts, tile_base, n_tiles, tiles_x, n_channels,
+                            tile_w, tile_h, True)

@@ -1,0 +1,3 @@
+"""The tile-sharded multi-device path (port of the JAX package's parallel/):
+process groups in `mesh`, the strip rasterizer in `raster`, the sharded
+train steps in `train`, and the multi-process entry points in `dryrun`."""

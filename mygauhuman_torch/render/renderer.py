@@ -102,6 +102,8 @@ def render_frame(
     transforms: torch.Tensor | None = None,        # replay branch
     translation: torch.Tensor | None = None,
     scaling_modifier: float = 1.0,
+    raster_fn=None,        # rasterize-compatible; parallel/raster.py's strip
+                           # rasterizer for the tile-sharded steps
 ) -> RenderResult:
     """Render one camera view of the articulated Gaussian human."""
     p: GaussianParams = state.params
@@ -158,7 +160,7 @@ def render_frame(
     features = torch.where(state.alive[:, None], features, torch.zeros_like(features))
 
     cov6 = get_covariance6(p, scaling_modifier, transforms)
-    out = rasterize(
+    out = (raster_fn or rasterize)(
         means3d, cov6, opacity, features, camera.w2c, camera.full_proj, _pack_bg(bg),
         width=camera.width, height=camera.height, tan_fovx=camera.tan_fovx,
         tan_fovy=camera.tan_fovy, config=config, means2d_offset=means2d_offset,

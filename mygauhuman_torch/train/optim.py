@@ -17,6 +17,7 @@ its group's count before the update.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, NamedTuple
 
@@ -52,23 +53,60 @@ class AdamState(NamedTuple):
 
 
 def tree_map(fn, *trees):
-    """Map fn over the tensor leaves of matching NamedTuple / dict / list trees."""
+    """Map fn over the tensor leaves of matching NamedTuple / dataclass /
+    dict / list trees. A leaf that is not a tensor is kept as it is, and
+    must be equal in every tree."""
     t0 = trees[0]
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
     if isinstance(t0, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if dataclasses.is_dataclass(t0) and not isinstance(t0, type):
+        return dataclasses.replace(t0, **{
+            f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(t0)})
     if hasattr(t0, "_fields"):
         return type(t0)(*(tree_map(fn, *leaves) for leaves in zip(*trees)))
     if isinstance(t0, (list, tuple)):
         return type(t0)(tree_map(fn, *leaves) for leaves in zip(*trees))
-    raise TypeError(f"not a tree node: {type(t0)}")
+    if any(t != t0 for t in trees[1:]):
+        raise ValueError(f"trees differ in a leaf that is not a tensor: {list(trees)}")
+    return t0
 
 
 def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """tree_map over the tensor leaves with each leaf's path: the field names
+    and dict keys (list positions as ints) from the root down. Dataclasses
+    are nodes too; leaves that are not tensors are kept as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map_with_path(fn, getattr(tree, f.name), path + (f.name,))
+            for f in dataclasses.fields(tree)})
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f), path + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return tree
+
+
+def is_gaussian_path(path) -> bool:
+    """True iff a tree path descends through the per-Gaussian subtree (the
+    `gaussians` field of TrainableParams and its Adam moments, or a
+    TrainState's `gauss`). Matching the path, not only the leading
+    dimension, keeps MLP layers as wide as a small capacity (the pose and
+    LBS MLPs are 128 wide) from being taken for per-Gaussian rows."""
+    return any(name in ("gaussians", "gauss") for name in path)
 
 
 def expon_lr(step: int, lr_init: float, lr_final: float, lr_delay_steps: int = 0,

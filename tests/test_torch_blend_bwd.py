@@ -378,3 +378,69 @@ def test_blend_pallas_keeps_checkpoints_only_when_differentiated(sc, monkeypatch
     out.image.sum().backward()
     assert calls == {"fwd": 1, "from_ckpt": 1, "whole": 0}
     assert float(feats.grad.abs().max()) > 0
+
+
+# ---- the instance-level blend of a strip at a non-zero tile_base ----------------
+
+@pytest.fixture(scope="module")
+def strip():
+    """A 128 x 32 frame (8 x 2 tiles, wide enough for the JAX row kernel),
+    binned by the JAX package, C = 19, K = 24: the instance matrix, the
+    lists, and a seeded cotangent of the blend's output rows."""
+    rng = np.random.RandomState(11)
+    n = 90
+    means2d = np.stack([rng.rand(n) * 128, rng.rand(n) * 32], 1).astype(np.float32)
+    conics = np.tile(np.asarray([0.05, 0.01, 0.06], np.float32), (n, 1))
+    conics[:10] = (0.3, 0.0, 0.3)                           # a tight, dense stack
+    means2d[:10] = (70.0, 20.0)
+    opac = (rng.rand(n) * 0.85 + 0.1).astype(np.float32)
+    opac[:10] = 0.97
+    depths = (2.0 + rng.rand(n)).astype(np.float32)
+    feats = rng.rand(n, C).astype(np.float32)
+    radii = np.full(n, 12, np.int32)
+    bins = jbin(jnp.asarray(means2d), jnp.asarray(radii), jnp.asarray(depths),
+                jnp.ones(n, bool), width=128, height=32, tile_capacity=K)
+    counts = jnp.minimum(bins.counts, K)
+    inst = jpb.build_instance_data(bins.sorted_rank, bins.starts, counts,
+                                   jnp.asarray(means2d), jnp.asarray(conics), jnp.asarray(opac),
+                                   jnp.asarray(depths), jnp.asarray(feats), order=bins.order)
+    return dict(data=np.asarray(inst.data), starts=np.asarray(inst.starts),
+                counts=np.asarray(counts),
+                g=rng.randn(16, C + 3, 256).astype(np.float32))
+
+
+@pytest.mark.parametrize("planar,base,n_tiles", [(True, 8, 8), (False, 8, 8), (False, 5, 11)])
+def test_blend_instances_at_tile_base_match_jax(strip, planar, base, n_tiles):
+    """blend_instances{,_planar} of tiles [base, base + n_tiles) of the
+    8-wide grid (CPU tensors: kernel C's and D's plain versions) against
+    the JAX custom_vjps in interpret mode: the forward within 1e-5, the
+    instance matrix's gradient within the file's bound."""
+    s = strip
+    sl = slice(base, base + n_tiles)
+    g = s["g"][sl]                                          # [T, C + 3, P]
+    if planar:   # the same cotangent, in the planar layout
+        rows = n_tiles // 8
+        g = g.reshape(rows, 8, C + 3, 16, 16).transpose(2, 0, 3, 1, 4).reshape(
+            C + 3, rows * 16, 128)
+    jfn = jpb.blend_instances_planar if planar else jpb.blend_instances
+    args = (jnp.asarray(s["starts"][sl]), jnp.asarray(s["counts"][sl]),
+            jnp.asarray([base], jnp.int32))
+    jout, vjp = jax.vjp(lambda d: jfn(d, *args, n_tiles, 8, C, 16, 16, True),
+                        jnp.asarray(s["data"]))
+    cut = (slice(0, C + 3),) if planar else (slice(None), slice(0, C + 3))
+    pad = [(0, 0)] * jout.ndim
+    pad[0 if planar else 1] = (0, jout.shape[0 if planar else 1] - (C + 3))
+    (want_d,) = vjp(jnp.pad(jnp.asarray(g), pad))
+
+    data = t(s["data"]).requires_grad_(True)
+    tfn = tpb.blend_instances_planar if planar else tpb.blend_instances
+    out = tfn(data, t(s["starts"][sl]), t(s["counts"][sl]), base, n_tiles, 8, C)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout)[cut], rtol=0, atol=1e-5)
+    (got_d,) = torch.autograd.grad(out, data, t(g))
+    assert got_d.shape == data.shape
+    close(got_d.numpy(), np.asarray(want_d))
+    assert float(np.abs(np.asarray(want_d)[:7]).max()) > 1e-3
+    # without grad, no checkpoints are kept and the output is the same
+    with torch.no_grad():
+        assert torch.equal(tfn(data, t(s["starts"][sl]), t(s["counts"][sl]), base, n_tiles,
+                               8, C), out.detach())

@@ -10,9 +10,9 @@ against the JAX package's CLIs, on the CPU (`--device cpu`).
     (8-bit PNGs of float32 renders through two rasterizers) and PSNR
     within 0.05 dB.
   * `--start_checkpoint` resumes at the next iteration; `cli.train` reads
-    tests/test_data_readers.py's ZJU disk fixture; the flag of the feature
-    not ported yet (`--multichip`) raises NotImplementedError; `--precompile`
-    returns at once without training.
+    tests/test_data_readers.py's ZJU disk fixture; `--multichip` on one
+    process (no launcher) is the single-device run, bit for bit;
+    `--precompile` returns at once without training.
   * `cli.metrics` against the JAX `evaluate_dirs` on the same PNG
     directories: PSNR and SSIM within 1e-4 (float32, another order of the
     same sums). LPIPS: the two random backbones come from different PRNGs,
@@ -43,6 +43,8 @@ from mygauhuman_torch.cli.render import main as render_main
 from mygauhuman_torch.cli.train import main as train_main
 from mygauhuman_torch.eval.lpips import LPIPS
 from mygauhuman_torch.eval.metrics import evaluate_images
+from mygauhuman_torch.train import optim as TO
+from mygauhuman_torch.train import trainer as TT
 from mygauhuman_torch.train.checkpoint import load_checkpoint
 from test_data_readers import make_zju_fixture
 
@@ -160,17 +162,21 @@ def test_train_on_zju_disk_fixture(tmp_path, monkeypatch):
     assert sorted(int(k) for k in cache) == list(range(17))
 
 
-UNPORTED = {
-    "multichip": (train_main, ["--multichip"], "item 5"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_flags_raise(case, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    main, argv, item = UNPORTED[case]
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        main(argv + ["--device", "cpu"])
+def test_multichip_on_one_process_is_the_single_device_run(trained, tmp_path):
+    """--multichip without a launcher (one process) trains with the
+    single-device step, as the JAX CLI does with one device: the same
+    state and losses as the module's run, bit for bit."""
+    r = train_main(SYNTH + [
+        "--iterations", str(ITERS), "--test_iterations", str(ITERS),
+        "--save_iterations", str(ITERS), "--model_path", str(tmp_path / "mc"), "--multichip",
+        "--device", "cpu"])
+    want = trained[1]
+    assert r["mesh"] is None and r["final_loss"] == want["final_loss"]
+    assert r["test_psnr"] == want["test_psnr"] and r["densify"] == want["densify"]
+    for a, b in zip(TO.tree_leaves(TT.trainable_params(r["state"])),
+                    TO.tree_leaves(TT.trainable_params(want["state"]))):
+        assert torch.equal(a, b)
+    assert torch.equal(r["state"].gauss.xyz_grad_accum, want["state"].gauss.xyz_grad_accum)
 
 
 def test_precompile_returns_without_training(tmp_path):

@@ -11,7 +11,8 @@ SMPL-X body, on the CPU (`--device cpu`), against the JAX package.
     pixel (8-bit PNGs of float32 renders through two rasterizers, as
     tests/test_torch_cli.py holds the SMPL run) and PSNR within 0.05 dB;
   * `--start_checkpoint` resumes the SMPL-X run at the next iteration;
-  * `--multichip` alone still raises, naming ROADMAP Queue 1 item 5.
+  * `--multichip --smpl_type smplx` on 2 gloo ranks trains as the
+    single-process run does (the densify trajectory and the alive set).
 """
 import os
 import shutil
@@ -28,6 +29,7 @@ from mygauhuman_tpu.models.smplx import synthetic_smplx
 from mygauhuman_tpu.train.checkpoint import load_eval_cache as jax_load_eval_cache
 from mygauhuman_torch.cli.render import main as render_main
 from mygauhuman_torch.cli.train import main as train_main
+from mygauhuman_torch.parallel.dryrun import launch
 from mygauhuman_torch.train.checkpoint import load_checkpoint
 from test_smplx_training import export_smplx_npz, make_posed_smc
 
@@ -110,7 +112,28 @@ def test_start_checkpoint_resumes_the_smplx_run(trained):
     assert r["n_gaussians"] == trained["result"]["n_gaussians"]
 
 
-def test_multichip_still_raises(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_main(["--multichip", "--smpl_type", "smplx", "--gui", "--device", "cpu"])
+def test_multichip_smplx_on_two_ranks(trained):
+    """`--multichip --smpl_type smplx` on 2 gloo ranks (processes, as
+    torch.distributed.run starts them; mesh (1, 1, 2)): the run of the
+    module's fixture, sharded. The densify events and the alive set are the
+    single-process run's, the loss within 2e-3 relative (the JAX loop
+    test's bound) and xyz within 5e-3; every rank ends with the same state;
+    only rank 0 writes the output directory."""
+    out = trained["tmp"] / "multichip"
+    torch.save(dict(argv=trained["body"] + DENSIFY + [
+        "--iterations", str(ITERS), "--test_iterations", str(ITERS), "--save_iterations",
+        str(ITERS), "--model_path", str(out), "--skip_galleries", "--multichip",
+        "--device", "cpu"]), trained["tmp"] / "mc_inputs.pt")
+    res = launch("cli", 2, trained["tmp"] / "mc_ranks", inputs=trained["tmp"] / "mc_inputs.pt",
+                 device="cpu")
+    want = trained["result"]
+    for r in res:
+        assert r["mesh"] == {"data": 1, "gauss": 1, "tiles": 2}
+        assert r["densify"] == want["densify"] and r["n_gaussians"] == want["n_gaussians"]
+        assert torch.equal(r["alive"], want["state"].gauss.alive)
+        np.testing.assert_allclose(r["xyz"].numpy(), want["state"].gauss.params.xyz.numpy(),
+                                   rtol=0, atol=5e-3)
+        assert abs(r["final_loss"] - want["final_loss"]) < 2e-3 * abs(want["final_loss"])
+        assert torch.equal(r["xyz"], res[0]["xyz"])
+    assert res[0]["test_psnr"] > 0 and res[1]["test_psnr"] == 0.0   # rank 0 evaluates
+    assert os.path.exists(out / f"point_cloud_{ITERS}.ply")

@@ -644,3 +644,45 @@ def test_blend_kernel_tile_major_at_bake_faces(cuda):
         ref = rasterize(*(a.cpu() for a in r["args"]), width=32, height=32, tan_fovx=1.0,
                         tan_fovy=1.0, config=r["config"]).alpha
     assert float((alpha.cpu() - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("w,h", [(512, 512), (1224, 1024)])
+def test_blend_instances_strip_at_tile_base(cuda, w, h):
+    """The tile-sharded rasterizer's blend of a strip of whole tile rows
+    from the one holding the median instance to the end of the grid
+    (planar at 512^2, tile-major at 1224x1024): kernel C in checkpoint mode
+    at that tile_base against its plain version, and the backward (D1s and
+    D2 on those checkpoints) against autograd of the plain version, as
+    kernel D is held."""
+    inst, kw = instance_inputs(cuda, w, h)
+    T, tw = kw["n_tiles"], kw["tiles_x"]
+    cum = torch.cumsum(inst.counts.long(), 0)
+    base = int(torch.searchsorted(cum, cum[-1] // 2)) // tw * tw
+    assert 0 < base and int(inst.counts[base:].sum()) > 0
+    n = T - base
+    starts, counts = inst.starts[base:].contiguous(), inst.counts[base:].contiguous()
+    fn = pb.blend_instances_planar if kw["planar"] else pb.blend_instances
+    data = inst.data.clone().requires_grad_(True)
+    before = dict(cuda_lib.LAUNCHES)
+    out = fn(data, starts, counts, base, n, tw, 19)
+    want = pb.blend_instances_plain(inst.data, starts, counts, base, n_tiles=n, tiles_x=tw,
+                                    n_channels=19, planar=kw["planar"])
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["blend_fwd_ckpt"] == before["blend_fwd_ckpt"] + 1
+    rows = (out.detach() - want).abs().movedim(0 if kw["planar"] else 1, 0).reshape(22, -1)
+    assert float(rows[:20].max()) <= 1e-4 and float(rows[21].max()) <= 1e-4
+    assert float(rows[20].max()) <= 1e-3                        # the depth row
+    g = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    (got,) = torch.autograd.grad(out, data, g)
+    with torch.enable_grad():
+        d = inst.data.clone().requires_grad_(True)
+        ref = pb.blend_instances_plain(d, starts, counts, base, n_tiles=n, tiles_x=tw,
+                                       n_channels=19, planar=kw["planar"])
+        (want_g,) = torch.autograd.grad(ref, d, g)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["blend_bwd_ckpt"] == before["blend_bwd_ckpt"]
+    assert cuda_lib.LAUNCHES["blend_bwd"] == before["blend_bwd"] + 1
+    tol = 1e-4 * want_g.abs().max(dim=1, keepdim=True).values + 1e-6
+    assert bool(((got - want_g).abs() <= tol).all())
+    assert float(want_g[:7].abs().max()) > 1e-3
