@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (mygauhuman_torch) on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mc-ab <checkout>   # phase 9 (c)'s 2-rank run there
+                                               # and here, held equal bit for bit
 
 Phases, each of which must pass (any failure exits non-zero):
   1. setup: the card's name and power limit, the kernels' build (one nvcc per
@@ -99,6 +101,7 @@ Phases, each of which must pass (any failure exits non-zero):
      `python -m torch.distributed.run` (this script with `--mc-worker`): on
      one card both ranks run on cuda:0 over gloo (NCCL refuses two ranks
      on one device), on two or more cards on distinct cards over NCCL;
+     each rank holds its capacity slice of the per-Gaussian state;
      (a) rasterize_sharded at the bench point against the single-device
      rasterize on the same card (image, alpha, final_t within 2e-5, depth
      1e-4, radii equal, no exchange overflow, opacity and feature
@@ -122,14 +125,18 @@ Phases, each of which must pass (any failure exits non-zero):
      iterations of training make of that rounding: the losses of
      iterations 1-100 within 5e-3 relative, the alive counts at the densify
      events within 0.5%, the PSNR at 600 within 0.5 dB; ms/iteration of both, the
-     exchange bytes, the collectives' and the state gather's time per
-     step, the sharded step twice bit-equal, each rank's launches;
- 10. each kernel's time lost on the main paths from its device time, a
-     `kernels` JSON line (`launches`: rank 0's in the 2-rank cli.train
-     --multichip run, and every number measured on rank 1's inputs of the
-     sharded step, its strip at a non-zero tile_base: kernel C planar in
-     checkpoint mode at 512^2, tile-major (not on that path) on the
-     1224x1024 strip; the other paths' launches in `launches_by_path`),
+     exchange bytes, the collectives' time per step, the sharded step
+     twice bit-equal, each rank's launches; per rank, its per-Gaussian
+     bytes against the whole state's at the start and at 600, and the
+     state gathers (calls, bytes) over the run: none inside a step and
+     none in an iteration without a densify event, eval or save;
+ 10. each kernel's time lost on the main paths from its device time, the
+     script's own seconds (`[total]`), a `kernels` JSON line (`launches`:
+     rank 0's in the 2-rank cli.train --multichip run, and every number
+     measured on rank 1's inputs of the sharded step, its strip at a
+     non-zero tile_base: kernel C planar in checkpoint mode at 512^2,
+     tile-major (not on that path) on the 1224x1024 strip; the other
+     paths' launches in `launches_by_path`),
      the card line, and as the last line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -262,14 +269,14 @@ def device_ms(fn, name, reps=20, warmup=2, per_call=1):
     a torch.profiler trace of `reps` calls. The profiler has been seen to
     drop most kernel events from some traces (the durations of the rest are
     right), so a median is taken and a short trace is noted; a trace with
-    no event of some name is taken again, twice at most, then None."""
+    no event of some name is taken again, four times at most, then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -2125,23 +2132,26 @@ def dna_phase(dev, n_sm, card):
 # on one device); with two or more cards, on distinct cards over NCCL
 
 
-def torchrun(nproc, part, *extra, timeout=900):
-    """Run this script's multichip worker `part` on nproc ranks through
-    torch.distributed.run, relay the ranks' report lines, fail on a
-    non-zero exit; returns the launch's wall seconds and each rank's JSON."""
+def torchrun(nproc, part, *extra, timeout=900, root=None):
+    """Run the multichip worker `part` of this script (or of the checkout
+    at `root`) on nproc ranks through torch.distributed.run, relay the
+    ranks' report lines, fail on a non-zero exit; returns the launch's wall
+    seconds and each rank's JSON."""
     import sys
 
-    MC_DIR.mkdir(parents=True, exist_ok=True)
-    log = MC_DIR / f"{part}-{nproc}.log"
-    for f in MC_DIR.glob(f"{part}-{nproc}-rank*.json"):
+    here = Path(__file__).resolve().parent
+    root = here if root is None else Path(root).resolve()
+    mc_dir = root / MC_DIR.relative_to(here)
+    mc_dir.mkdir(parents=True, exist_ok=True)
+    log = mc_dir / f"{part}-{nproc}.log"
+    for f in mc_dir.glob(f"{part}-{nproc}-rank*.json"):
         f.unlink()
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(nproc), str(Path(__file__).resolve()), "--mc-worker", part,
+           "--nproc_per_node", str(nproc), str(root / "chip_smoke.py"), "--mc-worker", part,
            *extra]
     t0 = time.perf_counter()
     with open(log, "w") as f:
-        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
-                                cwd=str(Path(__file__).resolve().parent),
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=str(root),
                                 start_new_session=True)
         try:
             proc.wait(timeout=timeout)
@@ -2156,7 +2166,7 @@ def torchrun(nproc, part, *extra, timeout=900):
             print(line, flush=True)
     require(proc.returncode == 0,
             f"multichip {part} on {nproc} ranks exited {proc.returncode}:\n{text[-6000:]}")
-    return wall, [json.loads((MC_DIR / f"{part}-{nproc}-rank{r}.json").read_text())
+    return wall, [json.loads((mc_dir / f"{part}-{nproc}-rank{r}.json").read_text())
                   for r in range(nproc)]
 
 
@@ -2254,6 +2264,7 @@ def mc_checks(rt, mesh, pbr_inputs):
     from mygauhuman_torch.data.synthetic import look_at_camera
     from mygauhuman_torch.eval.lpips import LPIPS
     from mygauhuman_torch.models import gaussians as G
+    from mygauhuman_torch.parallel.mesh import RASTER_AXES, StateSharding
     from mygauhuman_torch.parallel.raster import rasterize_sharded
     from mygauhuman_torch.parallel.train import (
         make_tile_sharded_pbr_step,
@@ -2275,12 +2286,14 @@ def mc_checks(rt, mesh, pbr_inputs):
                                         bg=torch.zeros(3, device=dev), mesh=mesh,
                                         exchange_capacity=MC_EXCHANGE,
                                         lpips_fn=train["lpips"], lpips_crop=train["crop"])
+    sharding = StateSharding(mesh.group(RASTER_AXES))
+    share = sharding.shard(train["ts"], train["ts"].gauss.capacity)
     seen, wide = {}, {}
     with capture(lbs_mod, "knn", seen), capture(lbs_mod, "deform_rows", seen), \
             capture(pb, "blend_instances_cuda", seen), \
             capture(pbb, "blend_tiles_bwd_from_ckpt_raw", seen), \
             capture(pd, "deform_rows_bwd_cuda", seen):
-        step.loss_and_grads(train["ts"], stack_batches([scene.batches[0]]), 0)
+        step.loss_and_grads(share, stack_batches([scene.batches[0]]), 0)
     b0 = scene.batches[0]
     cam = look_at_camera(b0.camera.cam_center.cpu().numpy(),
                          scene.big_pose_verts.mean(0).cpu().numpy(), *MC_WIDE, device=dev)
@@ -2330,25 +2343,29 @@ def mc_checks(rt, mesh, pbr_inputs):
                                        bg=torch.zeros(3, device=dev), mesh=mesh,
                                        exchange_capacity=MC_EXCHANGE,
                                        lpips_fn=LPIPS(device=dev))
-    ts, pbr = a["ts"], a["pbr_state"]
+    # this rank's share of the state and of the occlusion colour
+    cap = a["ts"].gauss.capacity
+    sh, pbr = sharding.shard(a["ts"], cap), a["pbr_state"]
+    occ = sharding.shard(a["occ"], cap).local[None]
     batch = stack_batches([a["batch"]])
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(MC_PBR_ITERS):
-        ts, pbr, m = pstep(ts, pbr, batch, a["knn3"], a["occ"][None], a["prefilter_w"],
-                           MC_PBR_DEGREE)
+        sh, pbr, m = pstep(sh, pbr, batch, a["knn3"], occ, a["prefilter_w"], MC_PBR_DEGREE)
         losses.append(float(m["loss"]))
-        if i == 0:
-            first = to_dev(ts.gauss.params, torch.device("cpu"))
+        if i == 0:      # every rank joins the gather
+            first = to_dev(sharding.gather(sh).gauss.params, torch.device("cpu"))
     out["pbr_ms"] = 1e3 * (time.perf_counter() - t0) / MC_PBR_ITERS
     out["pbr_losses"] = losses
     in_turn(lambda: print(f"{tag} (d) sharded branch-B step: {MC_PBR_ITERS} iterations at "
-                          f"capacity {ts.gauss.capacity}, {out['pbr_ms']:.2f} ms/iteration (the "
-                          f"loss read every iteration), last loss {losses[-1]:.6f}", flush=True))
+                          f"capacity {sh.capacity} ({occ.shape[1]} rows on this rank), "
+                          f"{out['pbr_ms']:.2f} ms/iteration (the loss read every iteration, "
+                          f"the state gathered after the first), last loss {losses[-1]:.6f}",
+                          flush=True))
+    final = to_dev((sharding.gather(sh), pbr), torch.device("cpu"))
     if r == 0:
-        torch.save(dict(first=first, final=to_dev((ts, pbr), torch.device("cpu"))),
-                   MC_DIR / "pbr_sharded.pt")
+        torch.save(dict(first=first, final=final), MC_DIR / "pbr_sharded.pt")
     out["report"] = report
     return out
 
@@ -2356,20 +2373,26 @@ def mc_checks(rt, mesh, pbr_inputs):
 def mc_cli(rt, mesh, argv):
     """(c) cli.train on this launch's ranks: its launches, the losses of the
     first MC_LOSS_ITERS iterations, its densify events and PSNR; on more
-    than one rank, then the sharded step's collectives and state gather per
-    step (timed, the card synchronised around each) and the same step
-    twice from the trained state, bit for bit."""
+    than one rank, this rank's per-Gaussian bytes against the whole state's
+    (at the start and the end), the state gathers over the run, inside the
+    steps and in each iteration, then the sharded step's collectives per
+    step (timed, the card synchronised around each) and the same step twice
+    from the trained state, bit for bit."""
     import torch
 
     from mygauhuman_torch.cli import train as cli_train
     from mygauhuman_torch.eval.lpips import LPIPS
     from mygauhuman_torch.ops import cuda_lib
     from mygauhuman_torch.parallel import mesh as pm
+    from mygauhuman_torch.parallel import train as ptrain
     from mygauhuman_torch.parallel.train import make_tile_sharded_train_step, stack_batches
     from mygauhuman_torch.train import trainer as TT
     from mygauhuman_torch.train.optim import tree_leaves
 
-    losses = {}
+    losses, by_it, in_steps, counted_so_far = {}, {}, [0], [0]
+
+    def gathers():
+        return pm.STATS.get("state_gather", {}).get("calls", 0)
 
     def logged(orig):
         def run(ts, *args, callback=None, **kw):
@@ -2377,29 +2400,74 @@ def mc_cli(rt, mesh, argv):
                 if it <= MC_LOSS_ITERS:
                     losses[it] = float(m["loss"])
                 callback(it, ts, m)
+                # the iteration's gathers: its step, its events, its callback
+                by_it[it] = gathers() - counted_so_far[0]
+                counted_so_far[0] = gathers()
             return orig(ts, *args, callback=cb, **kw)
         return run
 
+    def counted(orig):
+        def make(*args, **kw):
+            step = orig(*args, **kw)
+
+            def run(*a, **k):
+                before = gathers()
+                out = step(*a, **k)
+                in_steps[0] += gathers() - before
+                return out
+            return run
+        return make
+
     cuda_lib.reset_launches()
-    with patched(TT, "train_loop", logged):
+    pm.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(TT, "train_loop", logged), \
+            patched(ptrain, "make_tile_sharded_train_step", counted):
         res = cli_train.main(argv)
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    run_gathers = dict(pm.STATS.get("state_gather", {"calls": 0, "bytes": 0}))
     tag = f"[multichip r{rt.rank}/{rt.world_size}]"
     print(f"{tag} cli.train --multichip: {res['last_iteration']} iterations in "
           f"{res['elapsed_s']:.3f} s ({1e3 * res['elapsed_s'] / res['last_iteration']:.3f} "
           f"ms/iteration), mesh {res['mesh']}, test PSNR {res['test_psnr']:.4f}, "
-          f"{res['n_gaussians']} Gaussians, capacity {res['capacity']}; launches {launches}",
-          flush=True)
+          f"{res['n_gaussians']} Gaussians, capacity {res['capacity']}; peak device memory "
+          f"allocated by this rank {peak_mb:.1f} MB; launches {launches}", flush=True)
     out = dict(losses=losses, densify=res["densify"], psnr=res["test_psnr"],
                elapsed_s=res["elapsed_s"], iterations=res["last_iteration"],
-               launches=launches, mesh=res["mesh"], phases=res["phases"])
+               launches=launches, mesh=res["mesh"], phases=res["phases"], peak_mb=peak_mb)
     if mesh is None:
         return out
+    # the iterations that gather by design: densify events, eval and save
+    events = {e["iteration"] for e in res["densify"]} | {MC_ITERS}
+    quiet = [it for it in by_it if it not in events]
+    out.update(state_bytes=res["state_bytes"], state_gather=run_gathers,
+               gathers_in_steps=in_steps[0], quiet_iterations=len(quiet),
+               gathers_quiet=sum(by_it[it] for it in quiet),
+               gathers_at=[(it, by_it[it]) for it in sorted(events) if it in by_it])
+    b = res["state_bytes"]
+    print(f"{tag} state: per-Gaussian leaves {b['start']['rank'] / 1e6:.3f} MB of the whole "
+          f"{b['start']['whole'] / 1e6:.3f} MB at the start (capacity "
+          f"{b['start']['capacity']}), {b['end']['rank'] / 1e6:.3f} of "
+          f"{b['end']['whole'] / 1e6:.3f} MB at {res['last_iteration']} (capacity "
+          f"{b['end']['capacity']}); state_gather over the run {run_gathers['calls']} calls, "
+          f"{run_gathers['bytes'] / 1e6:.3f} MB sent by this rank (calls per iteration "
+          f"{out['gathers_at']} at the densify events and the eval and save at "
+          f"{MC_ITERS}, and the returned state); inside the {len(by_it)} steps "
+          f"{in_steps[0]} calls, in the {len(quiet)} iterations without an event "
+          f"{out['gathers_quiet']} calls", flush=True)
+    require(in_steps[0] == 0 and out["gathers_quiet"] == 0,
+            f"{tag} the state was gathered inside a step ({in_steps[0]}) or between events "
+            f"({out['gathers_quiet']})")
+    require(all(2 * b[w]["rank"] == b[w]["whole"] for w in ("start", "end")),
+            f"{tag} a rank holds more than its half of the state: {b}")
     dev = rt.device
     scene = cli_train.synthetic_scene(CLI_SCENE["views"], CLI_SCENE["size"],
                                       CLI_SCENE["verts"], dev)
     ts = res["state"]
+    sharding = pm.StateSharding(mesh.group(pm.RASTER_AXES))
+    sh = sharding.shard(ts, ts.gauss.capacity)
     step = make_tile_sharded_train_step(
         scene.smpl_model, TT.Adam(TT.OptimizationConfig()), TT.OptimizationConfig(),
         scene.raster_config, bg=torch.zeros(3, device=dev), mesh=mesh,
@@ -2412,7 +2480,7 @@ def mc_cli(rt, mesh, argv):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(MC_TIMED_STEPS):
-        s1, _ = step(ts, batch, 0)
+        s1, _ = step(sh, batch, 0)
     torch.cuda.synchronize()
     pm.TIMED[0] = False
     out["timed_ms"] = 1e3 * (time.perf_counter() - t0) / MC_TIMED_STEPS
@@ -2420,19 +2488,19 @@ def mc_cli(rt, mesh, argv):
                            "bytes": v["bytes"] / MC_TIMED_STEPS,
                            "ms": 1e3 * v["seconds"] / MC_TIMED_STEPS}
                        for k, v in pm.STATS.items()}
-    coll_ms = sum(v["ms"] for k, v in out["per_step"].items() if k != "state_gather")
-    print(f"{tag} sharded step at capacity {ts.gauss.capacity}, {MC_TIMED_STEPS} steps with "
-          f"the card synchronised around each collective: {out['timed_ms']:.3f} ms/step; per "
-          f"step: exchange {out['per_step']['all_to_all']['bytes'] / 1e6:.3f} MB forward + "
+    coll_ms = sum(v["ms"] for v in out["per_step"].values())
+    print(f"{tag} sharded step at capacity {sh.capacity} ({sharding.rows(sh.capacity)} rows "
+          f"on this rank), {MC_TIMED_STEPS} steps with the card synchronised around each "
+          f"collective: {out['timed_ms']:.3f} ms/step; per step: exchange "
+          f"{out['per_step']['all_to_all']['bytes'] / 1e6:.3f} MB forward + "
           f"{out['per_step']['all_to_all_bwd']['bytes'] / 1e6:.3f} MB backward, collectives "
-          f"{coll_ms:.3f} ms, state gather {out['per_step']['state_gather']['ms']:.3f} ms "
-          f"({out['per_step']['state_gather']['bytes'] / 1e6:.3f} MB); by kind "
+          f"{coll_ms:.3f} ms, state gather "
+          f"{out['per_step'].get('state_gather', {}).get('calls', 0)} calls; by kind "
           f"{out['per_step']}", flush=True)
-    s2, m2 = step(ts, batch, 0)
-    s3, m3 = step(ts, batch, 0)
-    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(TT.trainable_params(s2)),
-                                                  tree_leaves(TT.trainable_params(s3)))) \
-        and torch.equal(s2.gauss.xyz_grad_accum, s3.gauss.xyz_grad_accum) \
+    require("state_gather" not in out["per_step"], f"{tag} the step gathers the state")
+    s2, m2 = step(sh, batch, 0)
+    s3, m3 = step(sh, batch, 0)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(s2.local), tree_leaves(s3.local))) \
         and float(m2["loss"]) == float(m3["loss"])
     print(f"{tag} the sharded step twice from the trained state: bit-equal {same}", flush=True)
     require(same, f"{tag} the sharded step twice differs")
@@ -2564,22 +2632,52 @@ def multichip_phase(dev, n_sm, card, pbr_final):
     return launches, checks[-1]["report"]
 
 
+def mc_cli_run(key, n, root=None):
+    """(c)'s cli.train --multichip for MC_ITERS iterations on n ranks, in
+    this checkout or the one at `root`; each rank's JSON."""
+    argv = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
+            str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"]),
+            "--multichip", "--iterations", str(MC_ITERS), "--test_iterations", str(MC_ITERS),
+            "--skip_galleries", "--model_path",
+            str(MC_DIR.relative_to(Path(__file__).resolve().parent) / f"cli-{key}"),
+            "--device", "cuda"]
+    wall, res = torchrun(n, "cli", *argv, timeout=1200, root=root)
+    print(f"[multichip] cli.train --multichip {key}: {n} rank(s), {wall:.1f} s wall"
+          + (f" (checkout {root})" if root else ""), flush=True)
+    return res
+
+
+def mc_ab(other):
+    """`python3 chip_smoke.py --mc-ab <checkout>`: (c)'s 2-rank cli.train
+    --multichip in another checkout of the repo (the parent commit,
+    unpacked with git archive into a directory .gitignore lists), then in
+    this one, on the same card; rank 0's losses of iterations
+    1-MC_LOSS_ITERS, its densify events (iteration, capacity, alive and
+    the counters) and its test PSNR held equal bit for bit."""
+    import torch
+
+    require(torch.cuda.is_available(), "no CUDA device: this script runs on the GPU")
+    print(f"[mc-ab] card: {card_line()}", flush=True)
+    runs = {"other": mc_cli_run("two", MC_RANKS, root=other)[0],
+            "this": mc_cli_run("two", MC_RANKS)[0]}
+    a, b = runs["other"], runs["this"]
+    same = {k: a[k] == b[k] for k in ("losses", "densify", "psnr")}
+    ms = {k: f"{1e3 * r['elapsed_s'] / r['iterations']:.3f}" for k, r in runs.items()}
+    print(f"[mc-ab] {other} vs this checkout, {MC_RANKS} ranks, {MC_ITERS} iterations: "
+          f"equal bit for bit {same}; PSNR {a['psnr']!r} / {b['psnr']!r}; alive at the "
+          f"densify events {[e['alive'] for e in a['densify']]} / "
+          f"{[e['alive'] for e in b['densify']]}; loss at 1 and {MC_LOSS_ITERS} "
+          f"{a['losses']['1']!r}, {a['losses'][str(MC_LOSS_ITERS)]!r} / "
+          f"{b['losses']['1']!r}, {b['losses'][str(MC_LOSS_ITERS)]!r}; ms/iteration {ms}",
+          flush=True)
+    require(all(same.values()), f"the runs differ: {same}")
+    print(card_line())
+
+
 def mc_cli_compare():
     """(c): the 2-rank cli.train --multichip against the 1-rank run (the
     single-device step); returns the 2-rank run's launches per rank."""
-    synth = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
-             str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"])]
-
-    def run(key, n):
-        argv = synth + ["--multichip", "--iterations", str(MC_ITERS), "--test_iterations",
-                        str(MC_ITERS), "--skip_galleries", "--model_path",
-                        str(MC_DIR / f"cli-{key}"), "--device", "cuda"]
-        wall, res = torchrun(n, "cli", *argv, timeout=1200)
-        print(f"[multichip] cli.train --multichip {key}: {n} rank(s), {wall:.1f} s wall",
-              flush=True)
-        return res
-
-    runs = {"one": run("one", 1), "two": run("two", MC_RANKS)}
+    runs = {"one": mc_cli_run("one", 1), "two": mc_cli_run("two", MC_RANKS)}
     one, two = runs["one"][0], runs["two"][0]
     ev = lambda r: [(e["iteration"], e["capacity"]) for e in r["densify"]]  # noqa: E731
     loss_d = {int(k): abs(two["losses"][k] - one["losses"][k]) / abs(one["losses"][k])
@@ -2613,6 +2711,17 @@ def mc_cli_compare():
             f"{MC_RANKS} ranks drift from 1 rank past the ceilings: loss {late}, alive "
             f"{alive}, PSNR {psnr} dB")
     for r, run in enumerate(runs["two"]):
+        b, g = run["state_bytes"], run["state_gather"]
+        print(f"[multichip] (c) rank {r} of {MC_RANKS}: per-Gaussian state {b['start']['rank']} "
+              f"of the whole {b['start']['whole']} bytes at the start (capacity "
+              f"{b['start']['capacity']}), {b['end']['rank']} of {b['end']['whole']} at "
+              f"{MC_ITERS} (capacity {b['end']['capacity']}); state_gather over the run "
+              f"{g['calls']} calls, {g['bytes']} bytes sent (by iteration "
+              f"{run['gathers_at']}, then the returned state); per step between events 0: "
+              f"{run['gathers_in_steps']} calls inside the {MC_ITERS} steps, "
+              f"{run['gathers_quiet']} in the {run['quiet_iterations']} iterations without a "
+              f"densify event, eval or save", flush=True)
+    for r, run in enumerate(runs["two"]):
         ln = run["launches"]
         print(f"[multichip] rank {r} launches in the {MC_RANKS}-rank cli.train: {ln}",
               flush=True)
@@ -2629,6 +2738,7 @@ def main() -> None:
     import torch
 
     require(torch.cuda.is_available(), "no CUDA device: this script runs on the GPU")
+    t_script = time.perf_counter()
     import mygauhuman_torch.models.lbs as lbs_mod
     import mygauhuman_torch.ops.pallas_blend as pb
     import mygauhuman_torch.ops.pallas_blend_bwd as pbb
@@ -2985,6 +3095,8 @@ def main() -> None:
                     launches_by_path={p: c[n] for p, c in paths.items()})
                for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles",
                          "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
+    print(f"[total] the script took {time.perf_counter() - t_script:.1f} s ({card})",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())   # name, power limit: nvidia-smi's own line
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2997,5 +3109,7 @@ if __name__ == "__main__":
 
     if "--mc-worker" in sys.argv:
         mc_worker(sys.argv[sys.argv.index("--mc-worker") + 1:])
+    elif "--mc-ab" in sys.argv:
+        mc_ab(sys.argv[sys.argv.index("--mc-ab") + 1])
     else:
         main()

@@ -34,9 +34,15 @@ themselves from its joint count. `--gui` serves the SIBR live viewer
 
 on the mesh of `parallel/mesh.py::make_hybrid_mesh` (gloo where ranks
 share a card, NCCL where each has its own), both branches, the exchange
-window `--exchange_capacity`; every rank holds the whole state and runs the
-same schedule, and only rank 0 evaluates and writes files. On one process
-it runs the single-device step, as the JAX CLI does with one device.
+window `--exchange_capacity`. Each rank holds its capacity slice of the
+per-Gaussian state (`parallel/mesh.py::StateSharding`, as the JAX step's
+sharding over the raster axes) and runs the same schedule; the whole state
+is gathered, every rank joining, only for the densify events, the bakes,
+the eval and save iterations, the viewer (every iteration with `--gui`)
+and the returned state. Only rank 0 evaluates and writes files. Each rank
+prints its per-Gaussian state bytes against the whole state's at the start
+and at the end. On one process it runs the single-device step, as the JAX
+CLI does with one device.
 Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
 command returns at once without training), `--scan_chunk` and
 `--occ_budget_mb` (the loops run one step per call, with the same
@@ -187,9 +193,11 @@ def main(argv=None) -> dict:
     """Train; returns {elapsed_s, final_loss, test_psnr, out_dir} as the JAX
     CLI does, plus the run's record: first / last iteration, Gaussians alive
     and capacity at the end, the densify events' counters, the eval and save
-    phases' times, the final TrainState (`state`), and with branch B its
-    PbrState (`pbr_state`) and `pbr` {iterations, elapsed_s,
-    bake_out_of_budget} (else None)."""
+    phases' times, the final TrainState (`state`, whole on every rank), and
+    with branch B its PbrState (`pbr_state`) and `pbr` {iterations,
+    elapsed_s, bake_out_of_budget} (else None); under --multichip on
+    several ranks, `state_bytes`: this rank's per-Gaussian bytes against
+    the whole state's at the start and the end (else None)."""
     args = build_parser().parse_args(argv)
 
     import torch
@@ -227,6 +235,11 @@ def main(argv=None) -> dict:
             print(f"multichip mesh: {mesh.shape if mesh else dict(data=1, gauss=1, tiles=1)} "
                   f"({rt.world_size} rank{'s' if rt.world_size > 1 else ''}, backend "
                   f"{rt.backend or 'none: the single-device step'})", flush=True)
+    sharding = None
+    if mesh is not None:
+        from mygauhuman_torch.parallel.mesh import RASTER_AXES, StateSharding
+
+        sharding = StateSharding(mesh.group(RASTER_AXES))
     out_dir = args.model_path or os.path.join("output", args.exp_name)
     if is_main:
         os.makedirs(out_dir, exist_ok=True)
@@ -321,6 +334,26 @@ def main(argv=None) -> dict:
         print(f"resumed from {args.start_checkpoint} "
               f"(iteration {start_iteration})")
 
+    state_bytes = None
+    if sharding is not None:
+        from mygauhuman_torch.parallel.mesh import per_gaussian_nbytes
+
+        def report_bytes(when, rank_bytes, whole):
+            state_bytes[when] = {"rank": rank_bytes, "whole": per_gaussian_nbytes(
+                whole, whole.gauss.capacity), "capacity": whole.gauss.capacity}
+            print(f"[state] rank {sharding.group.index} of {sharding.group.size} at the "
+                  f"{when}: per-Gaussian leaves {rank_bytes / 1e6:.3f} MB, the whole state's "
+                  f"{state_bytes[when]['whole'] / 1e6:.3f} MB (capacity "
+                  f"{whole.gauss.capacity})", flush=True)
+
+        # from here this rank holds its capacity slice (the whole snapshot,
+        # when resuming, was loaded and is sliced here)
+        state_bytes = {}
+        cap = ts.gauss.capacity
+        shard = sharding.shard(ts, cap)
+        report_bytes("start", per_gaussian_nbytes(shard.local, sharding.rows(cap)), ts)
+        ts = shard
+
     # LPIPS: active by default, both in the 0.01*lpips training term
     # (train.py:287) and the eval report (train.py:539). Without a weights
     # file the backbone is a deterministic random VGG; --lpips_weights
@@ -369,6 +402,19 @@ def main(argv=None) -> dict:
             # to published LPIPS without pretrained weights)
             m[lpips_obj.metric_name] = lpips_obj(render, gt)
         return m
+
+    def num_alive(ts) -> int:
+        return int(ts.gauss.num_alive) if sharding is None else sharding.num_alive(ts)
+
+    def whole_at(it, ts, viewer=False):
+        """The whole state where iteration `it` reads it (eval, save, the
+        viewer), else None. Every rank joins the gather."""
+        if not (viewer or it in args.test_iterations or it in args.save_iterations):
+            return None
+        if sharding is None:
+            return ts
+        with timer.phase("state_gather"):
+            return sharding.gather(ts)
 
     def run_eval(it, ts):
         """Test-iteration report parity (train.py:458-556): L1/PSNR/SSIM/
@@ -470,8 +516,10 @@ def main(argv=None) -> dict:
         seen["last"] = it
         if it % 100 == 0 or it == 1:
             logger.log(it, metrics)
-            logger.log(it, {"n_gaussians": int(ts.gauss.num_alive)}, prefix="scene")
-        poll_gui(it, ts)
+            logger.log(it, {"n_gaussians": num_alive(ts)}, prefix="scene")
+        ts = whole_at(it, ts, viewer=args.gui)
+        if args.gui:
+            poll_gui(it, ts)
         if "capacity" in metrics:       # a densify event ran at this iteration
             seen["densify"].append({"iteration": it, "capacity": metrics["capacity"],
                                     **{k[len("densify_"):]: v for k, v in metrics.items()
@@ -493,6 +541,7 @@ def main(argv=None) -> dict:
             extent=extent, smpl_vertices=smpl_vertices,
             max_sh_degree=args.sh_degree, seed=args.seed, callback=callback,
             num_iterations=phase_a_iters, start_iteration=start_iteration,
+            sharding=sharding,
         )
 
     pbr_state, pbr_record = None, None
@@ -527,6 +576,7 @@ def main(argv=None) -> dict:
             seen["last"] = it
             if it % 100 == 0 or it == 1:    # the phase-A cadence
                 logger.log(it, m, prefix="pbr")
+            ts2 = whole_at(it, ts2)
             if it in args.test_iterations and is_main:
                 with timer.phase("eval"):
                     last_psnr = run_eval(it, ts2)
@@ -546,7 +596,8 @@ def main(argv=None) -> dict:
             ts, pbr_state, pbr_step, train_batches, smpl_model, cfg,
             start_iteration=pbr_start, num_iterations=cfg.iterations - pbr_start,
             max_sh_degree=args.sh_degree, seed=args.seed, callback=pbr_callback,
-            bake_max_cells=args.bake_cells, bake_full_coverage=not args.bake_single_sweep)
+            bake_max_cells=args.bake_cells, bake_full_coverage=not args.bake_single_sweep,
+            sharding=sharding)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         pbr_record = {"iterations": cfg.iterations - pbr_start,
@@ -558,6 +609,10 @@ def main(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     elapsed = time.time() - start
+    if sharding is not None:
+        rank_bytes = per_gaussian_nbytes(ts.local, sharding.rows(ts.capacity))
+        ts = sharding.gather(ts)
+        report_bytes("end", rank_bytes, ts)
     n_alive = int(ts.gauss.num_alive)
     print(f"training done: {cfg.iterations} iters in {elapsed:.1f}s "
           f"({n_alive} gaussians)")
@@ -571,7 +626,7 @@ def main(argv=None) -> dict:
             "n_gaussians": n_alive, "capacity": ts.gauss.capacity,
             "densify": seen["densify"], "phases": timer.summary(), "state": ts,
             "pbr_state": pbr_state, "pbr": pbr_record,
-            "mesh": mesh.shape if mesh is not None else None}
+            "mesh": mesh.shape if mesh is not None else None, "state_bytes": state_bytes}
 
 
 if __name__ == "__main__":

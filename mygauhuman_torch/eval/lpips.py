@@ -8,7 +8,8 @@ in bf16 for the TPU's matrix unit; no Pallas kernel to port).
 Weights: no pretrained VGG ships, so by default the backbone is a
 deterministic random He-init VGG from a `torch.Generator` (reported as
 `lpips_rand`, never as published LPIPS). `weights_file` loads the JAX
-package's .npz format (torchvision VGG16 + lpips heads). `LPIPSParams`
+package's .npz format (torchvision VGG16 + lpips heads), which
+`export_torch_weights` writes from those state dicts. `LPIPSParams`
 holds conv weights in PyTorch's [cout, cin, kh, kw] layout;
 `interop.lpips_params` converts the JAX package's [kh, kw, cin, cout].
 """
@@ -69,6 +70,23 @@ def init_lpips(generator: torch.Generator | None = None, weights_file: str | Non
         cin = cout
     lins = tuple(torch.full((c,), 1.0 / c, device=dev) for c in _STAGE_CHANNELS)
     return LPIPSParams(convs=tuple(convs), lins=lins)
+
+
+def export_torch_weights(out_path: str, vgg_state: dict, lin_state: dict) -> None:
+    """Convert a torchvision VGG16 `features` state_dict and the lpips
+    package's lin heads into the .npz that `init_lpips(weights_file=)` (and
+    the JAX package) reads: conv weights as [kh, kw, cin, cout]."""
+    def arr(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    conv_ids = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    arrs = {}
+    for i, cid in enumerate(conv_ids):
+        arrs[f"conv{i}_w"] = np.transpose(arr(vgg_state[f"features.{cid}.weight"]), (2, 3, 1, 0))
+        arrs[f"conv{i}_b"] = arr(vgg_state[f"features.{cid}.bias"])
+    for i in range(5):
+        arrs[f"lin{i}"] = arr(lin_state[f"lin{i}.model.1.weight"]).reshape(-1)
+    np.savez(out_path, **arrs)
 
 
 def _features(params: LPIPSParams, x: torch.Tensor) -> list:

@@ -24,6 +24,7 @@ from mygauhuman_torch.ops.sh import num_sh_coeffs, rgb2sh
 from mygauhuman_torch.utils.transforms import (
     covariance6_from_scaling_rotation,
     inverse_sigmoid,
+    normalize,
     quat_to_rotmat,
     quat_to_rotmat_cols,
 )
@@ -68,6 +69,10 @@ class GaussianState(NamedTuple):
 def get_scaling(p: GaussianParams) -> torch.Tensor:
     # the clamp to [-15, 8] only guards against inf covariances
     return torch.exp(torch.clamp(p.scaling, -15.0, 8.0))
+
+
+def get_rotation(p: GaussianParams) -> torch.Tensor:
+    return normalize(p.rotation)
 
 
 def get_opacity(p: GaussianParams) -> torch.Tensor:

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from mygauhuman_torch.utils.transforms import covariance6_from_scaling_rotation
+
 
 class ProjectedGaussians(NamedTuple):
     means2d: torch.Tensor   # [N, 2] pixel coords
@@ -73,6 +75,12 @@ def compute_cov2d(
     c01 = a00 * t10 + a01 * t11 + a02 * t12
     c11 = a10 * t10 + a11 * t11 + a12 * t12
     return torch.stack([c00 + 0.3, c01, c11 + 0.3], dim=-1)
+
+
+def compute_cov3d(scaling: torch.Tensor, quat: torch.Tensor, scaling_modifier: float = 1.0,
+                  transform: torch.Tensor | None = None) -> torch.Tensor:
+    """[N, 3] scales (activated), [N, 4] quats -> [N, 6] symmetric covariance."""
+    return covariance6_from_scaling_rotation(scaling, quat, scaling_modifier, transform)
 
 
 def preprocess(

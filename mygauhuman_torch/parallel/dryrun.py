@@ -125,50 +125,112 @@ def _train_setup(inp, mesh):
         mesh=mesh, exchange_capacity=inp["exchange_capacity"])
 
 
+def _sharding(mesh):
+    from mygauhuman_torch.parallel.mesh import RASTER_AXES, StateSharding
+
+    return StateSharding(mesh.group(RASTER_AXES))
+
+
+def _share_rows(sh) -> dict:
+    """The rows of each per-Gaussian leaf of a share (and of its storage)."""
+    from mygauhuman_torch.parallel.mesh import _per_gaussian
+    from mygauhuman_torch.train.optim import tree_map_with_path
+
+    c = sh.local.gauss.alive.shape[0]
+    per_g, rows = _per_gaussian(sh.local, c), {}
+
+    def add(path, x):
+        if per_g(path, x):
+            row_bytes = x[0].numel() * x.element_size()
+            rows["/".join(map(str, path))] = (x.shape[0], x.untyped_storage().nbytes()
+                                              // max(row_bytes, 1))
+
+    tree_map_with_path(add, sh.local)
+    return rows
+
+
 def case_train_step(args, inp):
-    """loss_and_grads and the step, twice each, on inp's state and stacked
-    batch."""
+    """loss_and_grads and the step, twice each, on this rank's share of
+    inp's state and the stacked batch; the results gathered whole (the
+    gradients and increments too), the share's rows per leaf, and the
+    collective kinds each call recorded."""
+    from mygauhuman_torch.parallel import mesh as pm
+    from mygauhuman_torch.parallel.mesh import Sharded
+
     mesh = _mesh(args)
+    sharding = _sharding(mesh)
     step = _train_setup(inp, mesh)
     ts, batch, deg = inp["ts"], inp["batch"], inp.get("deg", 0)
-    loss, metrics, grads, stats, _ = step.loss_and_grads(ts, batch, deg)
-    ts1, m1 = step(ts, batch, deg)
-    ts2, m2 = step(ts, batch, deg)
-    return dict(loss=loss, metrics=metrics, grads=grads, stats=stats, ts1=ts1, m1=m1,
-                ts2=ts2, m2=m2, mesh=mesh.shape)
+    cap = ts.gauss.capacity
+    sh = sharding.shard(ts, cap)
+    kinds = {}
+    pm.reset_stats()
+    loss, metrics, grads, stats, _ = step.loss_and_grads(sh, batch, deg)
+    kinds["loss_and_grads"] = sorted(pm.STATS)
+    pm.reset_stats()
+    sh1, m1 = step(sh, batch, deg)
+    kinds["step"] = sorted(pm.STATS)
+    sh2, m2 = step(sh, batch, deg)
+    return dict(loss=loss, metrics=metrics, grads=sharding.gather(Sharded(grads, cap)),
+                stats=sharding.gather(Sharded(stats, cap)), ts1=sharding.gather(sh1), m1=m1,
+                ts2=sharding.gather(sh2), m2=m2, mesh=mesh.shape, rows=_share_rows(sh1),
+                kinds=kinds, capacity=sh1.capacity)
 
 
 def case_train_loop(args, inp):
     """train_loop with densify and capacity growth over the sharded step,
     one view per iteration."""
+    from mygauhuman_torch.parallel import mesh as pm
     from mygauhuman_torch.parallel.train import stack_batches
     from mygauhuman_torch.train.trainer import train_loop
 
     mesh = _mesh(args)
+    sharding = _sharding(mesh)
     base = _train_setup(inp, mesh)
-    events = []
-    ts, m = train_loop(
-        inp["ts"], inp["tx"], lambda t, b, d: base(t, stack_batches([b]), d), inp["batches"],
-        inp["cfg"], extent=inp["extent"], smpl_vertices=inp["smpl_vertices"],
-        max_sh_degree=0, seed=inp["seed"],
-        callback=lambda it, t2, m2: events.append((it, int(t2.gauss.capacity),
-                                                   int(t2.gauss.num_alive))))
+    events, in_steps = [], [0]
+
+    def step(t, b, d):
+        before = pm.STATS.get("state_gather", {}).get("calls", 0)
+        out = base(t, stack_batches([b]), d)
+        in_steps[0] += pm.STATS.get("state_gather", {}).get("calls", 0) - before
+        return out
+
+    pm.reset_stats()
+    sh, m = train_loop(
+        sharding.shard(inp["ts"], inp["ts"].gauss.capacity), inp["tx"], step,
+        inp["batches"], inp["cfg"], extent=inp["extent"], smpl_vertices=inp["smpl_vertices"],
+        max_sh_degree=0, seed=inp["seed"], sharding=sharding,
+        callback=lambda it, t2, m2: events.append((it, t2.capacity, sharding.num_alive(t2))))
+    gathers = pm.STATS["state_gather"]["calls"]
+    rows = _share_rows(sh)
+    ts = sharding.gather(sh)
     return dict(ts=ts, loss=float(m["loss"]), events=events,
                 alive=ts.gauss.alive.clone(), xyz=ts.gauss.params.xyz.detach().clone(),
-                mesh=mesh.shape)
+                mesh=mesh.shape, rows=rows, capacity=sh.capacity, gathers=gathers,
+                gathers_in_steps=in_steps[0])
 
 
 def case_pbr_step(args, inp):
-    """The sharded branch-B step on inp's state, light and occlusion."""
+    """The sharded branch-B step on this rank's share of inp's state and
+    occlusion, and inp's light; the state gathered whole, the share's rows
+    per leaf, the collective kinds the step recorded."""
+    from mygauhuman_torch.parallel import mesh as pm
     from mygauhuman_torch.parallel.train import make_tile_sharded_pbr_step
 
     mesh = _mesh(args)
+    sharding = _sharding(mesh)
     step = make_tile_sharded_pbr_step(
         inp["smpl_model"], inp["tx"], inp["light_tx"], inp["cfg"], inp["raster_config"],
         bg=inp["bg"], mesh=mesh, exchange_capacity=inp["exchange_capacity"])
-    ts, pbr, m = step(inp["ts"], inp["pbr_state"], inp["batch"], inp["knn3"], inp["occ"],
-                      inp["prefilter_w"], inp.get("deg", 0))
-    return dict(ts=ts, pbr_state=pbr, metrics=m)
+    cap = inp["ts"].gauss.capacity
+    c, i = sharding.rows(cap), sharding.group.index
+    occ = inp["occ"][:, i * c:(i + 1) * c]
+    pm.reset_stats()
+    sh, pbr, m = step(sharding.shard(inp["ts"], cap), inp["pbr_state"], inp["batch"],
+                      inp["knn3"], occ, inp["prefilter_w"], inp.get("deg", 0))
+    kinds = sorted(pm.STATS)
+    return dict(ts=sharding.gather(sh), pbr_state=pbr, metrics=m, rows=_share_rows(sh),
+                kinds=kinds, knn_gather_bytes=pm.STATS["knn_gather"]["bytes"])
 
 
 def case_batched(args, inp):
@@ -245,25 +307,27 @@ def case_dryrun(args, inp):
     bg = torch.zeros(3, device=dev)
     step = make_tile_sharded_train_step(scene.smpl_model, tx, cfg, rc, bg=bg, mesh=mesh,
                                         exchange_capacity=16384)
+    sharding = _sharding(mesh)
     batch = stack_batches(scene.batches[:views])
     t0 = time.perf_counter()
-    new_ts, m = step(ts, batch, 0)
+    new_sh, m = step(sharding.shard(ts, ts.gauss.capacity), batch, 0)
     loss = float(m["loss"])
     t_a = time.perf_counter() - t0
     assert np.isfinite(loss), f"multichip step produced loss={loss}"
-    assert new_ts.step == 1
+    assert new_sh.local.step == 1
 
     pbr_state, light_tx = create_pbr_state(cfg, base_res=16, device=dev)
     pbr_step = make_tile_sharded_pbr_step(scene.smpl_model, tx, light_tx, cfg, rc, bg=bg,
                                           mesh=mesh, exchange_capacity=16384)
-    occ = torch.full((views, new_ts.gauss.capacity, 3), 0.5, device=dev)
+    knn3 = compute_knn3(sharding.gather(new_sh).gauss)
+    occ = torch.full((views, sharding.rows(new_sh.capacity), 3), 0.5, device=dev)
     t0 = time.perf_counter()
-    ts_b, pbr_b, m_b = pbr_step(new_ts, pbr_state, batch, compute_knn3(new_ts.gauss), occ,
+    sh_b, pbr_b, m_b = pbr_step(new_sh, pbr_state, batch, knn3, occ,
                                 prefilter_weight_set(16, dev), 0)
     loss_b = float(m_b["loss"])
     t_b = time.perf_counter() - t0
     assert np.isfinite(loss_b), f"multichip PBR step loss={loss_b}"
-    assert ts_b.step == 2
+    assert sh_b.local.step == 2
     assert not torch.equal(pbr_b.light["base"], pbr_state.light["base"])
     if rt.rank == 0:
         print(f"dryrun_multichip({n}): OK, loss={loss:.4f}, pbr_loss={loss_b:.4f}, "
@@ -296,10 +360,13 @@ def case_multihost(args, inp):
                                         bg=torch.zeros(3, device=dev), mesh=mesh,
                                         exchange_capacity=2048)
     batch = stack_batches(scene.batches[:n_views])
+    sharding = _sharding(mesh)
+    sh = sharding.shard(ts, ts.gauss.capacity)
     losses = []
     for _ in range(inp["steps"]):
-        ts, m = step(ts, batch, 0)
+        sh, m = step(sh, batch, 0)
         losses.append(float(m["loss"]))
+    ts = sharding.gather(sh)
     p = ts.gauss.params
     return dict(losses=losses, xyz_abs_sum=float(p.xyz.abs().sum()),
                 opacity_abs_sum=float(p.opacity.abs().sum()),

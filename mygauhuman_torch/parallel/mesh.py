@@ -315,15 +315,16 @@ class _AllToAll(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return torch.cat(tuple(gather_raw(group, x)), dim=dim)
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return torch.cat(tuple(gather_raw(group, x, kind)), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         group, dim = ctx.group, ctx.dim
         chunks = torch.stack(torch.chunk(g, group.size, dim=dim))
-        return _ordered_sum(all_to_all_raw(group, chunks, "all_gather_bwd")), None, None
+        return (_ordered_sum(all_to_all_raw(group, chunks, f"{ctx.kind}_bwd")), None, None,
+                None)
 
 
 class _Psum(torch.autograd.Function):
@@ -342,10 +343,12 @@ def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
     return _AllToAll.apply(x, group) if group.size > 1 else x
 
 
-def all_gather(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group: Group, dim: int = 0,
+               kind: str = "all_gather") -> torch.Tensor:
     """The ranks' x concatenated along dim, in group order (backward: the
-    cotangent copies summed over the ranks, this rank's slice kept)."""
-    return _AllGather.apply(x, group, dim) if group.size > 1 else x
+    cotangent copies summed over the ranks, this rank's slice kept),
+    recorded in STATS as `kind` (and `{kind}_bwd`)."""
+    return _AllGather.apply(x, group, dim, kind) if group.size > 1 else x
 
 
 def psum(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -360,28 +363,117 @@ def pmax(x: torch.Tensor, group: Group) -> torch.Tensor:
     return gather_raw(group, x, "pmax").amax(dim=0) if group.size > 1 else x
 
 
-# ---- state and batch slices ------------------------------------------------------
+# ---- the sharded state ----------------------------------------------------------
 
-def _per_gaussian(tree, capacity):
+class Sharded(NamedTuple):
+    """A rank's share of a state tree (the port of a JAX tree placed by
+    state_sharding and shard_tree): `local` is the tree with every
+    per-Gaussian leaf cut to this rank's capacity slice, c = capacity / n
+    rows of n ranks, and every other leaf whole; `capacity` is the whole
+    tree's. The capacity is carried, never read off a leaf: on a share,
+    `GaussianState.capacity` (alive's rows) is c."""
+    local: Any
+    capacity: int
+
+
+def _per_gaussian(tree, rows):
     """The rule of the JAX state_sharding: a leaf is per-Gaussian when its
-    leading dimension is the capacity and its path runs through the
-    per-Gaussian subtree (every such leaf of a bare GaussianState or
-    GaussianParams tree, which has no such ancestor)."""
+    leading dimension is `rows` (the capacity of a whole tree, a slice's
+    rows in a share) and its path runs through the per-Gaussian subtree
+    (every such leaf of a bare GaussianState or GaussianParams tree, which
+    has no such ancestor). An MLP layer as wide as `rows` is not one."""
     paths = []
     tree_map_with_path(lambda p, x: paths.append(p), tree)
     bare = not any(is_gaussian_path(p) for p in paths)
-    return lambda path, x: x.dim() >= 1 and x.shape[0] == capacity and (
-        bare or is_gaussian_path(path))
+
+    def per_g(path, x):
+        if not (bare or is_gaussian_path(path)):
+            return False
+        if x.dim() >= 1 and x.shape[0] == rows:
+            return True
+        if not bare:
+            raise ValueError(f"leaf {path} of shape {tuple(x.shape)} on a per-Gaussian path "
+                             f"does not have {rows} rows")
+        return False
+
+    return per_g
 
 
 def state_slice(tree: Any, capacity: int, index: int, count: int) -> Any:
     """This rank's capacity slice [index c, (index + 1) c), c = capacity /
-    count, of every per-Gaussian leaf; the other leaves as they are."""
+    count, of every per-Gaussian leaf, copied (the whole leaf's storage is
+    not kept); the other leaves as they are."""
     if capacity % count:
         raise ValueError(f"capacity {capacity} does not split over {count} ranks")
     c = capacity // count
     per_g = _per_gaussian(tree, capacity)
     return tree_map_with_path(
-        lambda p, x: x[index * c:(index + 1) * c] if per_g(p, x) else x, tree)
+        lambda p, x: x[index * c:(index + 1) * c].clone() if per_g(p, x) else x, tree)
 
 
+def per_gaussian_nbytes(tree: Any, rows: int) -> int:
+    """Bytes of the tree's per-Gaussian leaves of `rows` rows."""
+    per_g = _per_gaussian(tree, rows)
+    total = [0]
+
+    def add(p, x):
+        if per_g(p, x):
+            total[0] += x.numel() * x.element_size()
+
+    tree_map_with_path(add, tree)
+    return total[0]
+
+
+class StateSharding:
+    """The port of state_sharding + shard_tree: per-Gaussian leaves split
+    over `group`'s ranks in group order, every other leaf replicated.
+
+    `shard` cuts a whole tree into this rank's `Sharded` share and `gather`
+    puts the whole tree together again on every rank: one all_gather of
+    the share's per-Gaussian leaves, packed bit for bit into one byte
+    matrix, recorded as `state_gather` in STATS. Every rank of the group
+    must join each gather. `num_alive` is the whole state's alive count
+    (a psum of the shares')."""
+
+    def __init__(self, group: Group):
+        self.group = group
+
+    def rows(self, capacity: int) -> int:
+        n = self.group.size
+        if capacity % n:
+            raise ValueError(f"capacity {capacity} does not split over {n} ranks")
+        return capacity // n
+
+    def shard(self, tree: Any, capacity: int) -> Sharded:
+        return Sharded(state_slice(tree, capacity, self.group.index, self.group.size),
+                       int(capacity))
+
+    def gather(self, sh: Sharded) -> Any:
+        if not isinstance(sh, Sharded):
+            raise TypeError(f"gather takes a Sharded share, got {type(sh).__name__}")
+        rows = self.rows(sh.capacity)
+        per_g = _per_gaussian(sh.local, rows)
+        leaves = []
+        tree_map_with_path(lambda p, x: leaves.append(x) if per_g(p, x) else None, sh.local)
+        if not leaves:
+            return sh.local
+        # each leaf's rows as raw bytes: any dtype, every bit kept
+        cols = [x.contiguous().reshape(rows, math.prod(x.shape[1:])).view(torch.uint8)
+                for x in leaves]
+        flat = torch.cat(cols, dim=1)
+        flat = gather_raw(self.group, flat, "state_gather").reshape(sh.capacity, -1)
+        whole, col = [], 0
+        for x, c in zip(leaves, cols):
+            shape = (sh.capacity,) + tuple(x.shape[1:])
+            if c.shape[1] == 0:     # no columns (features_rest at SH degree 0)
+                whole.append(x.new_empty(shape))
+                continue
+            part = flat[:, col:col + c.shape[1]].contiguous().view(x.dtype)
+            whole.append(part.reshape(shape))
+            col += c.shape[1]
+        it = iter(whole)
+        return tree_map_with_path(lambda p, x: next(it) if per_g(p, x) else x, sh.local)
+
+    def num_alive(self, sh: Sharded) -> int:
+        n = sh.local.gauss.alive.sum().reshape(1)
+        return int(gather_raw(self.group, n, "psum").sum())

@@ -6,10 +6,13 @@ the raster axes ("gauss", "tiles"), each rank rendering through the strip
 rasterizer (`parallel/raster.py`). `make_batched_train_step`: views split
 over "data", every Gaussian on every rank.
 
-Each step takes and returns the logical whole state on every rank, as the
-JAX step takes and returns global arrays: inside, a rank slices its
-capacity slice, runs the sharded forward and backward, and the collectives
-reduce the gradients as the JAX step's do:
+Each sharded step takes and returns this rank's share of the state
+(`parallel/mesh.py::Sharded`: every per-Gaussian leaf, Adam moments and
+densify statistics included, cut to the rank's capacity slice; the MLPs,
+their moments and the counts whole), as the JAX step's in_specs and
+out_specs shard the per-Gaussian leaves over the raster axes. A rank
+renders its slice, and the collectives reduce the gradients as the JAX
+step's do:
   * the replicated loss is pre-scaled by 1/(n_shards n_data) (each raster
     rank carries its copy through the strip all_gather, whose backward sums
     the copies; the data ranks' views are averaged);
@@ -21,20 +24,17 @@ reduce the gradients as the JAX step's do:
     all_gather's backward has summed the n_shards copies back to one. (The
     JAX step multiplies by n_shards B_total, so its xyz_grad_accum comes
     out n_shards times the single-device one: ROADMAP Queue 3.)
-Then the per-Gaussian gradients and statistic increments of the raster
-ranks are gathered (one all_gather, `state_gather` in mesh.STATS) and every
-rank runs the same optimizer update on the whole state. That gathers the
-gradients where the JAX step's output sharding would gather the updated
-leaves and both Adam moments: a third of the bytes, and the same update,
-elementwise, on every rank. So `train/trainer.py::train_loop`, densify,
-prune, capacity growth, snapshots and the eval run unchanged, and
-identically on every rank (the same seed gives the same split noise).
+Adam then updates the slice. It is elementwise, so the slice holds the
+bits a whole-state update would give its rows, and nothing per-Gaussian is
+gathered inside a step. What the JAX package runs on global arrays gathers
+the share first (`StateSharding.gather`, `state_gather` in mesh.STATS) and
+slices the result again: `train/trainer.py::train_loop`'s densify event and
+capacity growth, `train/pbr.py::train_loop_pbr`'s bake and KNN, and the
+CLI's eval and snapshots.
 
-Deliberate differences from the JAX module: in branch B the geometry and
+Deliberate difference from the JAX module: in branch B the geometry and
 MLP groups keep their parameters, moments and counts (as the port's
-single-device branch-B step, ROADMAP Queue 3), and the KNN smoothness term
-reads `alive` from the whole state every rank holds (the JAX step gathers
-it from the slices: the same values).
+single-device branch-B step, ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -51,12 +51,12 @@ from mygauhuman_torch.parallel.mesh import (
     AXES,
     RASTER_AXES,
     Mesh,
+    Sharded,
     all_gather,
     gather_raw,
     pmax,
     pmean,
     psum,
-    state_slice,
 )
 from mygauhuman_torch.parallel.raster import make_strip_raster_fn
 from mygauhuman_torch.render.renderer import render_frame
@@ -127,16 +127,12 @@ def _psum_tree(tree, group):
     return tree_map(take, tree)
 
 
-def _whole(local: list, rgroup, dgroup) -> list:
-    """Per-Gaussian tensors [c, ...] of this rank's slice -> the whole
-    capacity's [n c, ...]: summed over "data", gathered over the raster
-    ranks (one collective each)."""
-    c = local[0].shape[0]
-    flat = _pack(local, c)
-    if dgroup.size > 1:
-        flat = psum(flat, dgroup)
-    flat = torch.cat(tuple(gather_raw(rgroup, flat, "state_gather")))
-    return _unpack(flat, local)
+def _sum_over_data(local: list, dgroup) -> list:
+    """Per-Gaussian tensors [c, ...] of this rank's slice summed over the
+    data ranks (one collective)."""
+    if dgroup.size == 1:
+        return local
+    return _unpack(psum(_pack(local, local[0].shape[0]), dgroup), local)
 
 
 def _densify_increments(g_offs: list, radii: list, scale: torch.Tensor):
@@ -168,11 +164,20 @@ class _Groups:
         self.data = mesh.group("data")
         self.all = mesh.group(AXES)
 
-    def local(self, capacity: int) -> tuple[int, int]:
+    def local(self, sh: Sharded) -> tuple[int, int]:
+        """(rows of this rank's slice, its index) of a share, checked
+        against its stated capacity."""
+        if not isinstance(sh, Sharded):
+            raise TypeError(f"the sharded step takes this rank's Sharded share "
+                            f"(parallel/mesh.py::StateSharding.shard), got {type(sh).__name__}")
         n = self.raster.size
-        if capacity % n:
-            raise ValueError(f"capacity {capacity} does not split over {n} raster ranks")
-        return capacity // n, self.raster.index
+        if sh.capacity % n:
+            raise ValueError(f"capacity {sh.capacity} does not split over {n} raster ranks")
+        c = sh.capacity // n
+        if sh.local.gauss.alive.shape[0] != c:
+            raise ValueError(f"a share of capacity {sh.capacity} on {n} ranks has {c} rows, "
+                             f"this one {sh.local.gauss.alive.shape[0]}")
+        return c, self.raster.index
 
 
 def make_tile_sharded_train_step(smpl_model: SMPLModel, tx: Adam, cfg: OptimizationConfig,
@@ -180,25 +185,26 @@ def make_tile_sharded_train_step(smpl_model: SMPLModel, tx: Adam, cfg: Optimizat
                                  mesh: Mesh, exchange_capacity: int = 4096,
                                  lpips_fn: Callable | None = None,
                                  lpips_crop: int | None = None):
-    """step(ts, batch, active_sh_degree) -> (new ts, metrics) with the
-    whole state in and out on every rank (module docstring) and `batch`
-    stacked (stack_batches), its views split over "data". The losses
-    and gradients are the single-device step's up to float rounding.
-    `step.loss_and_grads(...)` is its first half: (loss, metrics, the whole
-    gradient TrainableParams, the whole densify increments (grad norm sum,
-    visible count, radii max), this rank's radii per view)."""
+    """step(sh, batch, active_sh_degree) -> (new sh, metrics): `sh` is this
+    rank's share of a TrainState (a `Sharded`, module docstring), in and
+    out, and `batch` stacked (stack_batches), its views split over "data".
+    The losses and gradients are the single-device step's up to float
+    rounding. `step.loss_and_grads(...)` is its first half: (loss, metrics,
+    the gradient TrainableParams of the slice (its MLP gradients whole),
+    the slice's densify increments (grad norm sum, visible count, radii
+    max), this rank's radii per view)."""
     lpips_crop = LPIPS_CROP if lpips_crop is None else int(lpips_crop)
     groups = _Groups(mesh)
     raster_fn = make_strip_raster_fn(groups.raster, exchange_capacity)
 
-    def loss_and_grads(ts: TrainState, batch: TrainBatch, active_sh_degree: int):
+    def loss_and_grads(sh: Sharded, batch: TrainBatch, active_sh_degree: int):
         n_shards, n_data = groups.raster.size, groups.data.size
-        c, idx = groups.local(ts.gauss.capacity)
+        c, _ = groups.local(sh)
+        ts = sh.local
         views = _rank_views(batch, groups.data)
         B_total = batch.gt_image.shape[0]
-        gauss = state_slice(ts.gauss, ts.gauss.capacity, idx, n_shards)
-        params = tree_map(lambda x: x.detach().requires_grad_(True),
-                          TrainableParams(gauss.params, ts.pose_refiner, ts.lbs_offset))
+        gauss = ts.gauss
+        params = tree_map(lambda x: x.detach().requires_grad_(True), trainable_params(ts))
         dev = gauss.alive.device
         offs = [torch.zeros((c, 2), device=dev, requires_grad=True) for _ in views]
         leaves = tree_leaves(params) + offs
@@ -238,10 +244,9 @@ def make_tile_sharded_train_step(smpl_model: SMPLModel, tx: Adam, cfg: Optimizat
             if n_data > 1:
                 max_r = pmax(max_r, groups.data)
             g_leaves = list(gparams.gaussians)
-            whole = _whole(g_leaves + [stats, denom], groups.raster, groups.data)
-            max_r = torch.cat(tuple(gather_raw(groups.raster, max_r, "state_gather")))
+            summed = _sum_over_data(g_leaves + [stats, denom], groups.data)
             gparams = TrainableParams(
-                gaussians=type(gparams.gaussians)(*whole[:len(g_leaves)]),
+                gaussians=type(gparams.gaussians)(*summed[:len(g_leaves)]),
                 pose_refiner=_psum_tree(gparams.pose_refiner, groups.all),
                 lbs_offset=_psum_tree(gparams.lbs_offset, groups.all))
             metrics = dict(metrics, loss=local_mean.detach())
@@ -249,11 +254,12 @@ def make_tile_sharded_train_step(smpl_model: SMPLModel, tx: Adam, cfg: Optimizat
             metrics.update(overflow_tiles=out.overflow_tiles,
                            overflow_gauss=out.overflow_gauss,
                            overflow_inst=out.overflow_inst)
-        return (metrics["loss"], metrics, gparams, (whole[-2], whole[-1], max_r), radii)
+        return (metrics["loss"], metrics, gparams, (summed[-2], summed[-1], max_r), radii)
 
-    def step(ts: TrainState, batch: TrainBatch, active_sh_degree: int):
-        _, metrics, gparams, (stats, denom, max_r), _ = loss_and_grads(ts, batch,
+    def step(sh: Sharded, batch: TrainBatch, active_sh_degree: int):
+        _, metrics, gparams, (stats, denom, max_r), _ = loss_and_grads(sh, batch,
                                                                        active_sh_degree)
+        ts = sh.local
         mask = geometry_freeze_mask(gparams, ts.step >= cfg.pbr_iteration)
         gparams = tree_map(lambda g, m: g * m, gparams, mask)
         new_params, opt_state = tx.step(trainable_params(ts), gparams, ts.opt_state)
@@ -261,9 +267,10 @@ def make_tile_sharded_train_step(smpl_model: SMPLModel, tx: Adam, cfg: Optimizat
                                   xyz_grad_accum=ts.gauss.xyz_grad_accum + stats,
                                   denom=ts.gauss.denom + denom,
                                   max_radii2d=torch.maximum(ts.gauss.max_radii2d, max_r))
-        return TrainState(gauss=gauss, pose_refiner=new_params.pose_refiner,
-                          lbs_offset=new_params.lbs_offset, opt_state=opt_state,
-                          step=ts.step + 1), metrics
+        return sh._replace(local=TrainState(
+            gauss=gauss, pose_refiner=new_params.pose_refiner,
+            lbs_offset=new_params.lbs_offset, opt_state=opt_state,
+            step=ts.step + 1)), metrics
 
     step.loss_and_grads = loss_and_grads
     return step
@@ -344,17 +351,20 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
                                raster_config: RasterizerConfig, bg: torch.Tensor, mesh: Mesh,
                                exchange_capacity: int = 4096,
                                lpips_fn: Callable | None = None):
-    """The sharded branch-B step: step(ts, pbr_state, batch, knn3,
-    occlusion_color, prefilter_w, active_sh_degree) -> (new ts, new
-    pbr_state, metrics), the mirror of train/pbr.py's make_pbr_train_step.
-    `batch` is stacked and `occlusion_color` [B, cap, 3] leads with the
-    same view axis (split over "data"); the state, `knn3` (global ids)
-    and `prefilter_w` are whole on every rank. The G-buffers render through
-    the strip rasterizer, the shading and losses run replicated on the
-    gathered image, the KNN smoothness term all_gathers albedo and
-    roughness, and the light's gradient sums over every axis.
-    `step.loss_and_grads(...)` (same arguments): (loss, metrics, the whole
-    {"albedo", "roughness", "light"} gradients)."""
+    """The sharded branch-B step: step(sh, pbr_state, batch, knn3,
+    occlusion_color, prefilter_w, active_sh_degree) -> (new sh, new
+    pbr_state, metrics), the mirror of train/pbr.py's make_pbr_train_step
+    on this rank's share `sh` of a TrainState (a `Sharded`, in and out).
+    `batch` is stacked and `occlusion_color` [B, c, 3] holds every view's
+    rows of this rank's capacity slice (its views split over "data");
+    `pbr_state`, `knn3` (global ids) and `prefilter_w` are whole on every
+    rank. The G-buffers render through the strip rasterizer, the shading
+    and losses run replicated on the gathered image, the KNN smoothness
+    term all_gathers alive, albedo and roughness (cap x 5 floats), and the
+    light's gradient sums over every axis. The material slices and their
+    moments stay on their rank. `step.loss_and_grads(...)` (same arguments):
+    (loss, metrics, the {"albedo", "roughness"} gradients of the slice and
+    the whole {"light"} one)."""
     from mygauhuman_torch.pbr.shade import get_brdf_lut
     from mygauhuman_torch.train.pbr import (
         MATERIAL_GROUPS,
@@ -367,17 +377,19 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
     raster_fn = make_strip_raster_fn(groups.raster, exchange_capacity)
     brdf_lut = get_brdf_lut(bg.device)
 
-    def loss_and_grads(ts: TrainState, pbr_state, batch: TrainBatch, knn3: torch.Tensor,
+    def loss_and_grads(sh: Sharded, pbr_state, batch: TrainBatch, knn3: torch.Tensor,
                        occlusion_color: torch.Tensor, prefilter_w: dict,
                        active_sh_degree: int):
         n_shards, n_data = groups.raster.size, groups.data.size
-        cap = ts.gauss.capacity
-        c, idx = groups.local(cap)
+        c, _ = groups.local(sh)
+        ts = sh.local
         views = _rank_views(batch, groups.data)
         b = len(views)
-        occ = occlusion_color[groups.data.index * b:(groups.data.index + 1) * b,
-                              idx * c:(idx + 1) * c]
-        gauss = state_slice(ts.gauss, cap, idx, n_shards)
+        if occlusion_color.shape[1] != c:
+            raise ValueError(f"occlusion_color has {occlusion_color.shape[1]} rows, the "
+                             f"slice {c}")
+        occ = occlusion_color[groups.data.index * b:(groups.data.index + 1) * b]
+        gauss = ts.gauss
         g = gauss.params
         albedo = g.albedo.detach().requires_grad_(True)
         roughness = g.roughness.detach().requires_grad_(True)
@@ -386,7 +398,11 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
                                                                      roughness=roughness)
         mlps = tree_map(torch.Tensor.detach, {"pose_refiner": ts.pose_refiner,
                                               "lbs_offset": ts.lbs_offset})
-        alive_all = ts.gauss.alive.float()
+        # the smoothness term reads global neighbour ids: the whole
+        # capacity's alive mask and materials, in slice order (`knn_gather`
+        # in mesh.STATS)
+        alive_all = torch.cat(tuple(gather_raw(groups.raster, gauss.alive,
+                                               "knn_gather"))).float()
         totals, metrics = [], {}
         with exact_convs():
             for view, occ_one in zip(views, occ):
@@ -394,10 +410,8 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
                                    smpl_model, bg=bg, active_sh_degree=active_sh_degree,
                                    mlp_params=mlps, config=raster_config,
                                    occlusion_color=occ_one, raster_fn=raster_fn)
-                # the smoothness term reads global neighbour ids: the whole
-                # capacity's materials, in slice order
-                albedo_g = all_gather(G.get_albedo(params), groups.raster, 0)
-                rough_g = all_gather(G.get_roughness(params), groups.raster, 0)
+                albedo_g = all_gather(G.get_albedo(params), groups.raster, 0, "knn_gather")
+                rough_g = all_gather(G.get_roughness(params), groups.raster, 0, "knn_gather")
                 total, metrics = compute_losses_pbr(
                     out, view, {"base": base}, albedo_g, rough_g, alive_all, knn3,
                     canonical_view_dirs(view.camera), brdf_lut, lpips_fn, prefilter_w)
@@ -406,16 +420,17 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
             g_alb, g_rough, g_light = torch.autograd.grad(
                 local_mean / (n_shards * n_data), (albedo, roughness, base))
         with torch.no_grad():
-            g_alb, g_rough = _whole([g_alb, g_rough], groups.raster, groups.data)
+            g_alb, g_rough = _sum_over_data([g_alb, g_rough], groups.data)
             g_light = psum(g_light, groups.all)
             metrics = _pmean_metrics(dict(metrics, loss=local_mean.detach()), groups.data)
         return metrics["loss"], metrics, {"albedo": g_alb, "roughness": g_rough,
                                           "light": g_light}
 
-    def step(ts: TrainState, pbr_state, batch: TrainBatch, knn3: torch.Tensor,
+    def step(sh: Sharded, pbr_state, batch: TrainBatch, knn3: torch.Tensor,
              occlusion_color: torch.Tensor, prefilter_w: dict, active_sh_degree: int):
-        _, metrics, grads = loss_and_grads(ts, pbr_state, batch, knn3, occlusion_color,
+        _, metrics, grads = loss_and_grads(sh, pbr_state, batch, knn3, occlusion_color,
                                            prefilter_w, active_sh_degree)
+        ts = sh.local
         g = ts.gauss.params
         gauss_grads = G.GaussianParams(*(None for _ in g))._replace(
             normal=torch.zeros_like(g.normal), albedo=grads["albedo"],
@@ -435,7 +450,7 @@ def make_tile_sharded_pbr_step(smpl_model: SMPLModel, tx: Adam, light_tx, cfg: O
                             pose_refiner=new_params.pose_refiner,
                             lbs_offset=new_params.lbs_offset, opt_state=opt_state,
                             step=ts.step + 1)
-        return new_ts, new_pbr, metrics
+        return sh._replace(local=new_ts), new_pbr, metrics
 
     step.loss_and_grads = loss_and_grads
     return step

@@ -278,7 +278,8 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
                    smpl_model: SMPLModel, cfg: OptimizationConfig, *, start_iteration: int,
                    num_iterations: int, max_sh_degree: int = 3, seed: int = 0,
                    bake_height: int = 16, bake_width: int = 32, bake_max_cells: int = 128,
-                   bake_full_coverage: bool = True, callback: Callable | None = None):
+                   bake_full_coverage: bool = True, callback: Callable | None = None,
+                   sharding=None):
     """The branch-B loop (train.py iter > pbr_iteration), the JAX loop's
     non-chunked branch: views in the order of np.random.RandomState(seed + 7);
     each camera's per-Gaussian occlusion maps are baked on its first visit
@@ -292,30 +293,43 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
     bake_out_of_budget stays 0; False bakes one window and counts the
     Gaussians it leaves out. callback(it, ts, pbr_state, metrics) runs after
     every iteration; metrics carry `bake_out_of_budget`, summed over bakes.
-    Returns (ts, pbr_state, metrics)."""
+    Returns (ts, pbr_state, metrics).
+
+    With `sharding` (parallel/mesh.py::StateSharding, a multi-rank run),
+    `ts` is this rank's share of the state (a `Sharded`) in and out, as
+    `step_fn` and `callback` take it: the KNN neighbours and each bake read
+    the gathered whole state, and a bake's cache keeps this rank's rows, so
+    `step_fn` gets the occlusion colour of its capacity slice."""
     host_rng = np.random.RandomState(seed + 7)
-    dev = ts.gauss.alive.device
+    dev = pbr_state.light["base"].device
     prefilter_w = prefilter_weight_set(pbr_state.light["base"].shape[1], dev)
-    knn3 = compute_knn3(ts.gauss)
+
+    def whole(ts):
+        return ts if sharding is None else sharding.gather(ts)
+
+    knn3 = compute_knn3(whole(ts).gauss)
     stack: list = []
     metrics: dict = {}
     bake_oob_total = 0
-    occ_cache: dict = {}          # camera index -> uint8 [cap, H, W, 1]
+    occ_cache: dict = {}          # camera index -> uint8 [cap or c, H, W, 1]
 
     def ensure_baked(bi):
         nonlocal bake_oob_total
         if bi in occ_cache:
             return
-        m, c6, op, wn = _pose_for_bake(ts, batches[bi], smpl_model)
+        w = whole(ts)
+        m, c6, op, wn = _pose_for_bake(w, batches[bi], smpl_model)
         kw = dict(height=bake_height, width=bake_width)
         if bake_full_coverage:
-            occ, oob, _ = baking.bake_occlusion_full(m, c6, op, wn, ts.gauss.alive,
+            occ, oob, _ = baking.bake_occlusion_full(m, c6, op, wn, w.gauss.alive,
                                                      sweep_cells=bake_max_cells, **kw)
         else:
-            occ, oob = baking.bake_occlusion(m, c6, op, wn, ts.gauss.alive,
+            occ, oob = baking.bake_occlusion(m, c6, op, wn, w.gauss.alive,
                                              max_cells=bake_max_cells, **kw)
         bake_oob_total += int(oob)
-        occ_cache[bi] = torch.round(occ * 255.0).to(torch.uint8)
+        occ = torch.round(occ * 255.0).to(torch.uint8)
+        occ_cache[bi] = occ if sharding is None else \
+            sharding.shard(occ, w.gauss.capacity).local
 
     def pick_index():
         nonlocal stack

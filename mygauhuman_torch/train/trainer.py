@@ -236,17 +236,29 @@ def active_sh_degree_at(step: int, max_degree: int) -> int:
     return min(step // 1000, max_degree)
 
 
+def _reset_opacity(ts: TrainState) -> TrainState:
+    return ts._replace(gauss=G.reset_opacity(ts.gauss),
+                       opt_state=reset_opacity_moments(ts.opt_state))
+
+
 def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: OptimizationConfig, *,
                extent: float, smpl_vertices: torch.Tensor, max_sh_degree: int = 3,
                seed: int = 0, num_iterations: int | None = None, start_iteration: int = 0,
-               callback: Callable | None = None):
+               callback: Callable | None = None, sharding=None):
     """The host schedule: a shuffled stack of the views, refilled when
     exhausted (train.py:212-215, the JAX package's order for the same
     seed), densify events every densification_interval iterations inside
     [densify_from_iter, densify_until_iter), opacity resets every
     opacity_reset_interval. The loss is checked every 50 iterations; a
     non-finite one snapshots the state to output/diverged/chkpnt<it> and
-    raises FloatingPointError."""
+    raises FloatingPointError.
+
+    With `sharding` (parallel/mesh.py::StateSharding, a multi-rank run),
+    `ts` is this rank's share of the state (a `Sharded`) in and out, as
+    `step_fn` and `callback` take it: a densify event gathers the whole
+    state, grows and densifies it as on one device (every rank draws the
+    same split noise from the same seed) and shards the result; the opacity
+    reset, elementwise, runs on the share."""
     num_iterations = num_iterations or cfg.iterations
     host_rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
@@ -259,22 +271,27 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
             stack = list(range(len(batches)))
         return batches[stack.pop(host_rng.randint(len(stack)))]
 
+    def whole(ts):
+        return ts if sharding is None else sharding.gather(ts)
+
     for it in range(start_iteration + 1, num_iterations + 1):
         ts, metrics = step_fn(ts, pick_batch(), active_sh_degree_at(it, max_sh_degree))
         if it % 50 == 0 and not np.isfinite(float(metrics["loss"])):
-            path = save_checkpoint("output/diverged", it, ts)
+            path = save_checkpoint("output/diverged", it, whole(ts))
             raise FloatingPointError(f"non-finite loss at iteration {it}; state snapshot at "
                                      f"{path}")
         if (cfg.densify_from_iter <= it < cfg.densify_until_iter
                 and it % cfg.densification_interval == 0):
-            ts = maybe_grow_capacity(ts)
-            ts, dinfo = densify_event(ts, gen, cfg, extent, smpl_vertices, it)
+            full = maybe_grow_capacity(whole(ts))
+            full, dinfo = densify_event(full, gen, cfg, extent, smpl_vertices, it)
+            ts = full if sharding is None else sharding.shard(full, full.gauss.capacity)
             metrics = dict(metrics)
             metrics.update({f"densify_{k}": int(v) for k, v in dinfo.items()})
-            metrics["capacity"] = ts.gauss.capacity
+            metrics["capacity"] = full.gauss.capacity
+            del full    # a share's whole state is not kept through the next step
         if it % cfg.opacity_reset_interval == 0:
-            ts = ts._replace(gauss=G.reset_opacity(ts.gauss),
-                             opt_state=reset_opacity_moments(ts.opt_state))
+            ts = _reset_opacity(ts) if sharding is None else \
+                ts._replace(local=_reset_opacity(ts.local))
         if callback is not None:
             callback(it, ts, metrics)
     return ts, metrics

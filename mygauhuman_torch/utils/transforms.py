@@ -1,8 +1,9 @@
 """Rotation / rigid-transform helpers (fp32 torch).
 
 Port of mygauhuman_tpu/utils/transforms.py: quaternion -> rotation,
-Rodrigues, componentwise covariance, the adjugate 3x3 inverse with its
-determinant guard, and `rot_apply`.
+Rodrigues, the covariance (componentwise, and as the reference's 3x3
+matrix product with its strip / unstrip), the adjugate 3x3 inverse with
+its determinant guard, and `rot_apply`.
 """
 from __future__ import annotations
 
@@ -42,6 +43,39 @@ def _stack33(c: tuple) -> torch.Tensor:
 def quat_to_rotmat(q: torch.Tensor, normalize_quat: bool = True) -> torch.Tensor:
     """Quaternion (w, x, y, z) [..., 4] -> rotation matrix [..., 3, 3]."""
     return _stack33(quat_to_rotmat_cols(q, normalize_quat))
+
+
+def build_scaling_rotation(scaling: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): [..., 3] x [..., 4] -> [..., 3, 3]."""
+    return quat_to_rotmat(quat) * scaling[..., None, :]
+
+
+def covariance_from_scaling_rotation(
+    scaling: torch.Tensor,
+    quat: torch.Tensor,
+    scaling_modifier: float = 1.0,
+    transform: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """World covariance Sigma = L L^T, optionally T Sigma T^T, as the full
+    symmetric [..., 3, 3] matrix (reference gaussian_model.py:35-42;
+    strip_symmetric gives the 6-vector the rasterizer takes)."""
+    L = build_scaling_rotation(scaling_modifier * scaling, quat)
+    cov = L @ L.transpose(-1, -2)
+    if transform is not None:
+        cov = transform @ cov @ transform.transpose(-1, -2)
+    return cov
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> [..., 6] (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
+def unstrip_symmetric(c6: torch.Tensor) -> torch.Tensor:
+    """[..., 6] -> [..., 3, 3] symmetric."""
+    xx, xy, xz, yy, yz, zz = c6.unbind(-1)
+    return _stack33((xx, xy, xz, xy, yy, yz, xz, yz, zz))
 
 
 def rodrigues(rvec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

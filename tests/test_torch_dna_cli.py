@@ -117,8 +117,9 @@ def test_multichip_smplx_on_two_ranks(trained):
     torch.distributed.run starts them; mesh (1, 1, 2)): the run of the
     module's fixture, sharded. The densify events and the alive set are the
     single-process run's, the loss within 2e-3 relative (the JAX loop
-    test's bound) and xyz within 5e-3; every rank ends with the same state;
-    only rank 0 writes the output directory."""
+    test's bound) and xyz within 5e-3; every rank ends with the same state,
+    gathered from its half of the per-Gaussian bytes; only rank 0 writes the
+    output directory."""
     out = trained["tmp"] / "multichip"
     torch.save(dict(argv=trained["body"] + DENSIFY + [
         "--iterations", str(ITERS), "--test_iterations", str(ITERS), "--save_iterations",
@@ -135,5 +136,6 @@ def test_multichip_smplx_on_two_ranks(trained):
                                    rtol=0, atol=5e-3)
         assert abs(r["final_loss"] - want["final_loss"]) < 2e-3 * abs(want["final_loss"])
         assert torch.equal(r["xyz"], res[0]["xyz"])
+        assert 2 * r["state_bytes"]["end"]["rank"] == r["state_bytes"]["end"]["whole"] > 0
     assert res[0]["test_psnr"] > 0 and res[1]["test_psnr"] == 0.0   # rank 0 evaluates
     assert os.path.exists(out / f"point_cloud_{ITERS}.ply")

@@ -29,7 +29,9 @@ def test_cli_multichip_trains_both_branches_on_two_ranks(tmp_path):
     either way), the geometry frozen in branch B (bit-equal to the run's own
     snapshot at iteration 4) and within 5e-3 of the single-process run's.
     Each rank gets its own --model_path: rank 0 writes the directory, rank 1
-    leaves its own unmade."""
+    leaves its own unmade. Each rank holds half the per-Gaussian state's
+    bytes at the start and at the end (StateSharding; the returned state is
+    gathered whole)."""
     argv = ["--synthetic", "--synthetic_size", "32", "--iterations", "6", "--pbr_iteration",
             "4", "--test_iterations", "6", "--save_iterations", "4", "6", "--skip_galleries",
             "--bake_cells", "16", "--bake_single_sweep", "--device", CPU]
@@ -42,6 +44,9 @@ def test_cli_multichip_trains_both_branches_on_two_ranks(tmp_path):
     for r in res:
         assert r["mesh"] == {"data": 1, "gauss": 1, "tiles": 2}
         assert r["pbr"]["iterations"] == 2 and r["last_iteration"] == 6
+        for when in ("start", "end"):
+            b = r["state_bytes"][when]
+            assert b["capacity"] == want["capacity"] and 2 * b["rank"] == b["whole"] > 0
         assert torch.equal(r["alive"], want["state"].gauss.alive)
         assert abs(r["final_loss"] - want["final_loss"]) < 2e-3 * abs(want["final_loss"])
         assert torch.equal(r["xyz"], snap.gauss.params.xyz)

@@ -10,11 +10,14 @@ file's tolerances: the metrics within 1e-4 relative, albedo within 1e-4 of
 its largest value, roughness too but at KINK_ENTRIES entries (the BRDF
 LUT's bilinear slope jumps at texel edges), none past 1e-3, the light
 within 1e-4; the geometry and the MLPs bit-equal to the input (the port
-freezes them, ROADMAP Queue 3).
+freezes them, ROADMAP Queue 3). Each rank holds its capacity slice of the
+state and of the occlusion colour (`parallel/mesh.py::StateSharding`) and
+gathers its result whole before it writes it.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mygauhuman_tpu.config import OptimizationConfig as JOptCfg
@@ -37,7 +40,11 @@ torch.set_num_threads(1)
 CPU = "cpu"
 
 
-def test_tile_sharded_pbr_step_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def pbr_pair(tmp_path_factory):
+    """The JAX single-device branch-B step and the port's sharded one on 4
+    ranks, mesh (1, 2, 2), from the same state."""
+    tmp_path = tmp_path_factory.mktemp("pbr")
     js = jscene(n_views=2, width=48, height=48, n_verts=150, capacity=256)
     jcfg = JOptCfg(pbr_iteration=0)
     rng = np.random.RandomState(0)
@@ -66,6 +73,11 @@ def test_tile_sharded_pbr_step_matches_jax(tmp_path):
                tmp_path / "inputs.pt")
     res = launch("pbr_step", 4, tmp_path / "ranks", inputs=tmp_path / "inputs.pt",
                  mesh=(1, 2, 2), device=CPU)
+    return ts, jts2, jpbr2, jm, res
+
+
+def test_tile_sharded_pbr_step_matches_jax(pbr_pair):
+    ts, jts2, jpbr2, jm, res = pbr_pair
     want = interop.train_state(as_np(jts2), CPU)
     want_pbr = interop.pbr_state(as_np(jpbr2), CPU)
     for r in res:
@@ -86,3 +98,17 @@ def test_tile_sharded_pbr_step_matches_jax(tmp_path):
             assert torch.equal(a, b)
         assert not torch.equal(got.gauss.params.albedo, ts.gauss.params.albedo)
         assert torch.equal(got.gauss.params.albedo, res[0]["ts"].gauss.params.albedo)
+
+
+def test_tile_sharded_pbr_step_keeps_capacity_slices(pbr_pair):
+    """The material slices and their moments stay on their rank (capacity /
+    4 rows of every per-Gaussian leaf after the step); nothing per-Gaussian
+    is gathered inside the step but the smoothness term's alive, albedo and
+    roughness (`knn_gather`): cap x 5 values, the slice's 64 x 4 floats
+    and 64 bools from each rank."""
+    *_, res = pbr_pair
+    for r in res:
+        assert {tuple(v) for v in r["rows"].values()} == {(64, 64)}, r["rows"]
+        assert "opt_state/mu/gaussians/albedo" in r["rows"]
+        assert "state_gather" not in r["kinds"], r["kinds"]
+        assert r["knn_gather_bytes"] == 64 * (3 + 1) * 4 + 64

@@ -6,7 +6,9 @@ The JAX step runs on a (2, 1, 2) mesh of the 8 virtual CPU devices of
 tests/conftest.py, its kernels in interpret mode; the port's ranks run as
 processes over gloo on the same mesh (`parallel/dryrun.py::launch`, a
 `file://` store under tmp_path), from the JAX scene carried across through
-`interop`, and write their results for this process to compare.
+`interop`, and write their results for this process to compare. Each rank
+holds its capacity slice of the state (`parallel/mesh.py::StateSharding`);
+a rank gathers its results whole before it writes them.
 
 Tolerances:
   * the loss within 1e-4 relative and each Adam first moment (0.1 x the
@@ -27,7 +29,10 @@ Tolerances:
     scale) is held to the JAX one over n_shards n_data = 4 within 1e-3, and
     the visible counts and radii exactly;
   * the loop: the densify events equal, `alive` equal, xyz within 5e-3 and
-    the loss within 2e-3 relative (the JAX loop test's criteria).
+    the loss within 2e-3 relative (the JAX loop test's criteria);
+  * the sharded state: each rank's per-Gaussian leaves (parameters, both
+    moments, densify statistics) hold capacity / n_raster rows, and gathered
+    they equal the whole-state update on the gathered gradients bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -169,7 +174,7 @@ def test_tile_sharded_step_matches_jax(step_pair):
 def test_tile_sharded_step_twice_same_bits_on_every_rank(step_pair):
     """The same step twice from one state: the same bits (deterministic
     exchange, fixed-order sums over ranks and Gaussians), and every rank
-    holds the same whole state."""
+    gathers the same whole state."""
     *_, res = step_pair
     for r in res:
         for a, b, c in zip(TO.tree_leaves(TT.trainable_params(r["ts1"])),
@@ -180,11 +185,62 @@ def test_tile_sharded_step_twice_same_bits_on_every_rank(step_pair):
         assert float(r["m1"]["loss"]) == float(r["m2"]["loss"])
 
 
+def test_sharded_step_keeps_capacity_slices(step_pair):
+    """After a step on mesh (2, 1, 2) each rank's per-Gaussian leaves (the
+    parameters, both Adam moments, alive and the densify statistics) hold
+    capacity / 2 rows, in storage of their own."""
+    *_, res = step_pair
+    for r in res:
+        assert r["capacity"] == 256
+        # 9 parameters, alive, smpl_normal, 3 statistics; 9 rows of each moment
+        assert len(r["rows"]) == 9 + 5 + 2 * 9, sorted(r["rows"])
+        assert {tuple(v) for v in r["rows"].values()} == {(128, 128)}, r["rows"]
+        assert "gauss/alive" in r["rows"] and "opt_state/nu/gaussians/xyz" in r["rows"]
+
+
+def test_sharded_step_equals_whole_state_update(step_pair):
+    """The gathered state after a sharded step equals, bit for bit, the
+    whole-state update: `tx.step` on the gathered gradients, and the
+    gathered densify increments added to the whole statistics."""
+    _, _, _, port, res = step_pair
+    ts, tx, cfg = port["ts"], port["tx"], port["cfg"]
+    for r in res:
+        mask = TO.geometry_freeze_mask(r["grads"], ts.step >= cfg.pbr_iteration)
+        grads = TO.tree_map(lambda g, m: g * m, r["grads"], mask)
+        new_p, opt = tx.step(TT.trainable_params(ts), grads, ts.opt_state)
+        stats, denom, max_r = r["stats"]
+        want = TT.TrainState(
+            gauss=ts.gauss._replace(params=new_p.gaussians,
+                                    xyz_grad_accum=ts.gauss.xyz_grad_accum + stats,
+                                    denom=ts.gauss.denom + denom,
+                                    max_radii2d=torch.maximum(ts.gauss.max_radii2d, max_r)),
+            pose_refiner=new_p.pose_refiner, lbs_offset=new_p.lbs_offset, opt_state=opt,
+            step=ts.step + 1)
+        got = r["ts1"]
+        assert got.step == want.step and got.opt_state.count == want.opt_state.count
+        for a, b in zip(TO.tree_leaves(got), TO.tree_leaves(want), strict=True):
+            assert a.shape == b.shape and torch.equal(a, b)
+        assert float(grads.gaussians.xyz.abs().max()) > 0
+
+
+def test_no_state_gather_inside_a_step(step_pair):
+    """Nothing per-Gaussian is gathered inside the step or its
+    loss_and_grads: mesh.STATS records no `state_gather` there, only the
+    exchange, the strip all_gather, the psums and the pmax."""
+    *_, res = step_pair
+    for r in res:
+        for call in ("loss_and_grads", "step"):
+            assert "state_gather" not in r["kinds"][call], r["kinds"]
+            assert "all_to_all" in r["kinds"][call] and "psum" in r["kinds"][call]
+
+
 def test_loop_with_densify_and_growth_matches_single_device(tmp_path):
-    """train_loop over the sharded step (one view per iteration, stacked to
-    a batch of one, as cli.train --multichip runs it) on 4 ranks against
-    the single-device loop: capacity 128 grows to 512 at the densify events
-    and the trajectory is the single-device one."""
+    """train_loop over the sharded step and state (one view per iteration,
+    stacked to a batch of one, as cli.train --multichip runs it) on 4 ranks
+    against the single-device loop: capacity 128 grows to 512 at the densify
+    events and the trajectory is the single-device one. Each rank ends with
+    capacity / 4 rows, and the state was gathered once per densify event and
+    never inside a step."""
     scene = make_synthetic_scene(n_views=2, width=64, height=64, n_verts=100, capacity=128,
                                  raster_config=RC, device=CPU)
     cfg = OptimizationConfig(iterations=22, densify_from_iter=5, densify_until_iter=21,
@@ -213,7 +269,12 @@ def test_loop_with_densify_and_growth_matches_single_device(tmp_path):
     caps = [c for _, c, _ in events]
     assert caps[0] == 128 and caps[-1] >= 512
     assert events[-1][2] != events[0][2]
+    n_events = sum(it % cfg.densification_interval == 0
+                   for it in range(cfg.densify_from_iter, cfg.densify_until_iter))
     for r in res:
+        assert r["capacity"] == caps[-1]
+        assert {tuple(v) for v in r["rows"].values()} == {(caps[-1] // 4,) * 2}
+        assert r["gathers"] == n_events == 2 and r["gathers_in_steps"] == 0
         assert [tuple(e) for e in r["events"]] == events
         assert torch.equal(r["alive"], ts_s.gauss.alive)
         np.testing.assert_allclose(r["xyz"].numpy(), ts_s.gauss.params.xyz.detach().numpy(),
