@@ -20,9 +20,19 @@ Phases, each of which must pass (any failure exits non-zero):
   3. the serving render at the bench point (512^2, 6,890 SMPL vertices,
      capacity 8,192 -> PLY -> load -> compact 6,912, instance capacity
      32,768): 4 views through the deform branch, then through the replay
-     branch with the returned transforms; checks, launch counts, frames/s,
-     a torch.profiler breakdown (device busy share, top kernels); plus the
-     GPU render against the CPU (plain) render of the same inputs;
+     branch with the returned transforms; checks, launch counts; the GPU
+     render against the CPU (plain) render of the same inputs; then the
+     graphed serving frame (render/graph.py::GraphedRenderer, this slice's
+     main path, its launch counts reset before it and read after): 5
+     requests per branch, views and opacity epsilons interleaved, each
+     bit-equal to the eager frame of the same request in render, depth,
+     alpha, normal, world normal, albedo, roughness, transforms and
+     translation; each branch's first call (warm-up, capture, replay) under
+     torch.cuda.set_sync_debug_mode("error"); the launches a replay adds,
+     read from the captures, and the path's counts equal to them; eager and
+     graphed sweeps side by side (ms/frame by CUDA events and the host
+     clock, device busy share under torch.profiler, top eager kernels);
+     bench_torch.py's run at its own point, its JSON line tagged;
   4. the served size: 45,000 Gaussians (compacted capacity 45,056), 4 views
      through the deform branch, frames/s;
   5. branch-A training: kernel C at the inputs a training step's forward
@@ -56,7 +66,8 @@ Phases, each of which must pass (any failure exits non-zero):
      under the CLI's raster config; `cli.render` on the run through the
      deform branch and the replay cache (fps_device, fps_wall, PSNR / SSIM /
      LPIPS; the cached rows bit-equal to the eval's deform transforms, the
-     replay images bit-equal to a replay of them, and within 1e-3 of a
+     replay images (graphed, as cli.render serves every view) bit-equal to
+     an eager replay of them, and within 1e-3 of a
      deform render but at a few pixels, none beyond 1e-2); `cli.metrics` on
      the rendered PNGs against the scene's ground truth as PNGs, its PSNR
      within 1e-4 of the same metric on those 8-bit images in memory and
@@ -131,12 +142,15 @@ Phases, each of which must pass (any failure exits non-zero):
      state gathers (calls, bytes) over the run: none inside a step and
      none in an iteration without a densify event, eval or save;
  10. each kernel's time lost on the main paths from its device time, the
-     script's own seconds (`[total]`), a `kernels` JSON line (`launches`:
-     rank 0's in the 2-rank cli.train --multichip run, and every number
-     measured on rank 1's inputs of the sharded step, its strip at a
-     non-zero tile_base: kernel C planar in checkpoint mode at 512^2,
-     tile-major (not on that path) on the 1224x1024 strip; the other
-     paths' launches in `launches_by_path`),
+     script's own seconds (`[total]`), a `kernels` JSON line (kernels A, B
+     and C planar: `launches` from phase 3's graphed requests, every number
+     from phase 2's checks on the serving frame's inputs; C tile-major:
+     `launches` from phase 8's graphed cli.render replay at 1224x1024; B's
+     backward and D: rank 0's launches in the 2-rank cli.train --multichip
+     run; C tile-major, B's backward and D: every number measured on rank
+     1's inputs of the sharded step, C tile-major on the 1224x1024 strip;
+     `launches_path` and `measured_on` name them; the other paths'
+     launches in `launches_by_path`),
      the card line, and as the last line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -2734,6 +2748,168 @@ def mc_cli_compare():
     return {f"multichip_r{r}": run["launches"] for r, run in enumerate(runs["two"])}
 
 
+GRAPH_REQUESTS = [(0, 0.0), (1, 1e-3), (0, 2e-12), (3, -1e-3), (2, 5e-4)]   # (view, epsilon)
+GRAPH_FIELDS = ("render", "render_depth", "render_alpha", "normal", "world_normal", "albedo",
+                "roughness", "transforms", "translation")
+
+
+def clone_result(r):
+    import torch
+
+    return type(r)(*(x.clone() if isinstance(x, torch.Tensor) else x for x in r))
+
+
+def graph_phase(state, scene, model, cfg, bg, deformed, card):
+    """Phase 3's graphed serving frame (render/graph.py::GraphedRenderer),
+    this slice's main path: interleaved requests on both branches held bit
+    for bit to eager frames, each branch's capture under sync-debug "error",
+    the launches a replay adds, the eager and graphed sweeps side by side
+    (ms/frame by CUDA events and the host clock, device busy share), and
+    bench_torch.py's run. Returns the main path's launches."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench_torch
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.render import render_frame
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    dev = bg.device
+    V = len(scene.batches)
+    kw = dict(bg=bg, active_sh_degree=3, config=cfg)
+    rows = [dict(transforms=d.transforms, translation=d.translation) for d in deformed]
+
+    def eager(v, eps, branch):
+        st = state._replace(params=state.params._replace(opacity=state.params.opacity + eps))
+        b = scene.batches[v]
+        return render_frame(st, b.camera, b.frame, model, **kw,
+                            **(rows[v] if branch == "replay" else {}))
+
+    renderer = GraphedRenderer(state, model, **kw)
+
+    def graphed(v, eps, branch):
+        b = scene.batches[v]
+        return renderer(b.camera, b.frame, opacity_eps=eps,
+                        **(rows[v] if branch == "replay" else {}))
+
+    branches = ("deform", "replay")
+    with torch.no_grad():
+        wants = {(br, n): clone_result(eager(v, eps, br))
+                 for br in branches for n, (v, eps) in enumerate(GRAPH_REQUESTS)}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    bad = []
+    with torch.no_grad():
+        for br in branches:
+            for n, (v, eps) in enumerate(GRAPH_REQUESTS):
+                if n == 0:   # warm-up, capture and first replay: no host sync allowed
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        got = graphed(v, eps, br)
+                    except RuntimeError as e:
+                        require(False, f"the {br} capture synchronised with the host: {e}")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                else:
+                    got = graphed(v, eps, br)
+                want = wants[(br, n)]
+                bad += [f"{br} request {n} (view {v}, eps {eps}) {f}" for f in GRAPH_FIELDS
+                        if not torch.equal(getattr(got, f), getattr(want, f))]
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    per_frame = {k.branch: v for k, v in renderer.launches.items()}
+    # each capture's warm-up frame runs eagerly, each request replays
+    want_launches = {}
+    for br in branches:
+        for name, c in per_frame.get(br, {}).items():
+            want_launches[name] = want_launches.get(name, 0) + c * (len(GRAPH_REQUESTS) + 1)
+    print(f"[graph] {len(GRAPH_REQUESTS)} interleaved requests per branch (views, epsilons "
+          f"{GRAPH_REQUESTS}) on {V} views: graphed bit-equal to eager in {GRAPH_FIELDS}: "
+          f"{not bad}; {renderer.captures} graphs captured, each under sync-debug \"error\" "
+          f"without a host sync; graphed launches per frame {per_frame}; the path's launches "
+          f"{launches}", flush=True)
+    require(not bad, f"graphed frames differ from eager ones: {bad}")
+    require(renderer.captures == 2, f"{renderer.captures} captures, expected one per branch")
+    for name in ("knn", "deform", "blend_fwd"):
+        require(launches[name] > 0, f"kernel {name} was not launched on the graphed path")
+    require(launches["blend_fwd_ckpt"] == 0 and launches["deform_bwd"] == 0,
+            "the graphed serving path wrote checkpoints or ran kernel B's backward")
+    require({k: v for k, v in launches.items() if v} == want_launches,
+            f"launch counts {launches} are not the captures' counts {want_launches} per "
+            f"replay plus one eager warm-up per capture")
+
+    # eager and graphed frames side by side: FPS_FRAMES back to back (CUDA
+    # events and host clock), then PROFILE_FRAMES under torch.profiler for
+    # the device busy share
+    def sweep(fn, br, n):
+        acc = torch.zeros((), device=dev)
+        for i in range(n):
+            acc = acc + fn(i % V, 1e-12 * i, br).render[0, 0, 0]
+        return acc
+
+    for br in branches:
+        res = {}
+        for mode, fn in (("eager", eager), ("graphed", graphed)):
+            with torch.no_grad():
+                sweep(fn, br, 4)
+                torch.cuda.synchronize()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                sweep(fn, br, FPS_FRAMES)
+                ev[1].record()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3 / FPS_FRAMES
+                ev_ms = ev[0].elapsed_time(ev[1]) / FPS_FRAMES
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sweep(fn, br, PROFILE_FRAMES)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_FRAMES
+            kernels_ = [e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(device_us(e) for e in kernels_) / PROFILE_FRAMES
+            res[mode] = dict(ev_ms=ev_ms, host_ms=host_ms, wall_us=wall_us, busy_us=busy_us,
+                             n=sum(e.count for e in kernels_) / PROFILE_FRAMES, top=kernels_)
+
+        def busy(r):
+            # the profiler slows the host (its wall is not the frame's), so
+            # the share is also given against the unprofiled sweep's frame
+            if r["busy_us"] <= 0:
+                return "device busy not measured (no CUDA events)"
+            return (f"device busy {r['busy_us']:.0f} us/frame, "
+                    f"{100 * r['busy_us'] / (1e3 * r['ev_ms']):.1f}% of the unprofiled frame, "
+                    f"{100 * r['busy_us'] / r['wall_us']:.1f}% of the {r['wall_us']:.0f} us "
+                    f"under the profiler, {r['n']:.0f} device kernels/frame")
+
+        e, g = res["eager"], res["graphed"]
+        print(f"[bench] {br} branch over {FPS_FRAMES} frames, eager | graphed: CUDA events "
+              f"{e['ev_ms']:.4f} | {g['ev_ms']:.4f} ms/frame ({1e3 / e['ev_ms']:.1f} | "
+              f"{1e3 / g['ev_ms']:.1f} frames/s), host clock {e['host_ms']:.4f} | "
+              f"{g['host_ms']:.4f} ms/frame; eager {busy(e)}; graphed {busy(g)} ({card})",
+              flush=True)
+        for e_ in sorted(e["top"], key=device_us, reverse=True)[:8]:
+            print(f"[profile]   eager {br} {device_us(e_) / PROFILE_FRAMES:8.1f} us/frame "
+                  f"{e_.count / PROFILE_FRAMES:5.1f}x  {e_.key[:90]}")
+
+    # bench_torch.py at its own point (bench.py's): its lines, its JSON line
+    # tagged so that it is not mistaken for this script's own
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench = bench_torch.main([])
+    for line in out.getvalue().splitlines():
+        print(line if line.startswith("[") else f"[bench_torch] last line: {line}", flush=True)
+    print(f"[bench_torch] took {time.perf_counter() - t0:.1f} s; graphed launches per frame "
+          f"{ {k.branch: v for k, v in bench['launches'].items()} }", flush=True)
+    require(bench["fps"] > 0 and bench["deform_fps"] > 0, "bench_torch measured nothing")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2879,61 +3055,9 @@ def main() -> None:
           f"{ref_err_alpha:.3e} (CPU took {time.perf_counter() - t0:.1f} s)", flush=True)
     require(max(ref_err, ref_err_alpha) <= RENDER_ATOL, "GPU render disagrees with the CPU one")
 
-    def frame_fn(i, branch):
-        b = scene.batches[i % len(scene.batches)]
-        eps = 1e-12 * i      # unique work per frame
-        st = state._replace(params=state.params._replace(opacity=state.params.opacity + eps))
-        kw = {}
-        if branch == "replay":
-            d = deformed[i % len(deformed)]
-            kw = dict(transforms=d.transforms, translation=d.translation)
-        return render_frame(st, b.camera, b.frame, model, bg=bg, active_sh_degree=3,
-                            config=cfg, **kw).render
-
-    for branch in ("deform", "replay"):
-        with torch.no_grad():
-            for i in range(4):
-                frame_fn(i, branch)
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            acc = torch.zeros((), device=dev)
-            for i in range(FPS_FRAMES):
-                acc = acc + frame_fn(i, branch)[0, 0, 0]
-            end.record()
-            torch.cuda.synchronize()
-            host_s = time.perf_counter() - t0
-        ms = start.elapsed_time(end) / FPS_FRAMES
-        print(f"[bench] {branch} branch: {ms:.3f} ms/frame, {1e3 / ms:.1f} frames/s over "
-              f"{FPS_FRAMES} frames (host clock {host_s / FPS_FRAMES * 1e3:.3f} ms/frame)",
-              flush=True)
-
-    # where a frame's time goes: device busy share and the top device kernels
-    from torch.profiler import ProfilerActivity, profile
-
-    for branch in ("deform", "replay"):
-        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(PROFILE_FRAMES):
-                frame_fn(i, branch)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_FRAMES
-        kernels_ = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(device_us(e) for e in kernels_) / PROFILE_FRAMES
-        launches_ = sum(e.count for e in kernels_) / PROFILE_FRAMES
-        if busy_us <= 0:
-            print(f"[profile] {branch}: device time not measured (no CUDA events)")
-            continue
-        print(f"[profile] {branch} branch under the profiler: {wall_us:.0f} us/frame wall, "
-              f"{busy_us:.0f} us/frame device busy ({100 * busy_us / wall_us:.1f}%), "
-              f"{launches_:.0f} kernel launches/frame")
-        for e in sorted(kernels_, key=device_us, reverse=True)[:8]:
-            print(f"[profile]   {device_us(e) / PROFILE_FRAMES:8.1f} us/frame "
-                  f"{e.count / PROFILE_FRAMES:5.1f}x  {e.key[:90]}")
+    # the graphed serving frame (render/graph.py), this slice's main path:
+    # bit-equal to the eager frames, timed and profiled beside them
+    graph_launches = graph_phase(state, scene, model, cfg, bg, deformed, card)
 
     # ---- phase 4: the served size ----------------------------------------
     rng = np.random.default_rng(0)
@@ -3051,7 +3175,7 @@ def main() -> None:
     # `blend_fwd` counts every kernel C launch and `blend_fwd_tiles` the
     # tile-major ones; from here `blend_fwd` is the planar launches (the TPU
     # row kernel's), so each row counts its own layout
-    for counts in (serving_launches, loop_launches, *cli_launches.values(),
+    for counts in (serving_launches, graph_launches, loop_launches, *cli_launches.values(),
                    *pbr_launches.values(), *dna_launches.values(), *mc_launches.values()):
         counts["blend_fwd"] -= counts["blend_fwd_tiles"]
     cli_train_launches = cli_launches.pop("cli_train")
@@ -3079,22 +3203,38 @@ def main() -> None:
                     f"{dna_train_launches[name]} / {mc_train_launches[name]})")
     print("[lost] ms lost on the main paths from device time, serving / loop / cli.train / "
           "branch B / SMPL-X / multichip rank 0: " + "; ".join(lost), flush=True)
-    # this slice's main path is cli.train --multichip's 600 iterations on 2
-    # ranks: `launches` are rank 0's counts, and each kernel is measured on
-    # rank 1's inputs of the sharded step (its strip's tile_base is not 0):
-    # kernel C planar in checkpoint mode at 512^2, the tile-major kernel C
-    # (not on this path) on a 1224x1024 frame's strip; the other paths'
-    # counts beside them
-    paths = {"serving": serving_launches, "loop": loop_launches,
-             "cli_train": cli_train_launches, **cli_launches, **pbr_launches, **dna_launches,
-             **mc_launches}
+    # this slice's main path is the graphed serving frame: kernels A, B and
+    # C planar take `launches` from phase 3's graphed requests and every
+    # number from phase 2's checks on the serving frame's inputs at the
+    # bench point; kernel C tile-major takes `launches` from cli.render's
+    # graphed replay of the SMPL-X frame at 1224x1024 (phase 8). The
+    # training-only kernels (B's backward, D) keep the previous slice's
+    # main path, cli.train --multichip's 600 iterations on 2 ranks: rank 0's
+    # counts, each number measured on rank 1's inputs of the sharded step,
+    # as is kernel C tile-major's (on a 1224x1024 frame's strip).
+    # `launches_path` names the path of `launches`, `measured_on` that of
+    # the numbers; every path's counts are in `launches_by_path`
+    paths = {"serving": serving_launches, "serving_graph": graph_launches,
+             "loop": loop_launches, "cli_train": cli_train_launches, **cli_launches,
+             **pbr_launches, **dna_launches, **mc_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [dict({k: mc_report[n][k] for k in keys},
-                    launches=mc_train_launches[n],
-                    launches_by_path={p: c[n] for p, c in paths.items()})
-               for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles",
-                         "blend_bwd", "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows")]
+    serving_path = {"knn": "serving_graph", "deform": "serving_graph",
+                    "blend_fwd": "serving_graph", "blend_fwd_tiles": "smplx_dna_render_replay"}
+    kernels = []
+    for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles", "blend_bwd",
+              "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows"):
+        path = serving_path.get(n, "multichip_r0")
+        on_serving = path == "serving_graph"
+        kernels.append(dict(
+            {k: (report if on_serving else mc_report)[n][k] for k in keys},
+            launches=paths[path][n], launches_path=path,
+            measured_on=("the serving frame at the bench point (phase 2)" if on_serving
+                         else "rank 1's sharded step (phase 9)"),
+            launches_by_path={p: c[n] for p, c in paths.items()}))
+    for k in kernels:
+        require(k["launches"] > 0 or k["name"] not in serving_path,
+                f"kernel {k['name']}: no launch on {k['launches_path']}")
     print(f"[total] the script took {time.perf_counter() - t_script:.1f} s ({card})",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -185,9 +185,12 @@ def rigid_transform_chain(
 ) -> torch.Tensor:
     """Compose per-joint local transforms down the kinematic tree -> [J, 4, 4]."""
     n_joints = len(parents)
-    rel = torch.cat([joints[:1], joints[1:] - joints[np.asarray(parents[1:])]], dim=0)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(n_joints, 1, 4)
+    # each parent's row by a host int (one stack, no index tensor copied from
+    # the host, which a CUDA graph capture refuses)
+    parent_joints = torch.stack([joints[int(p)] for p in parents[1:]])
+    rel = torch.cat([joints[:1], joints[1:] - parent_joints], dim=0)
+    bottom = torch.zeros((n_joints, 1, 4), dtype=rot_mats.dtype, device=rot_mats.device)
+    bottom[..., 3:].fill_(1.0)
     local = torch.cat([torch.cat([rot_mats, rel[:, :, None]], dim=-1), bottom], dim=-2)
     chain = [local[0]]
     for j in range(1, n_joints):

@@ -45,6 +45,17 @@ def gaussian_tile_rects(means2d, radii, tw, th, tile_w, tile_h):
     return min_x, min_y, max_x, max_y
 
 
+def slot_counts(flat_tile: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """[T] int32 number of slots per tile, dead slots (tile T) dropped: a
+    fixed [T + 1] buffer of integer ones added at each slot's tile. Unlike
+    `torch.bincount`, whose CUDA version reads the input's max back to size
+    its output, nothing here waits on the device, so a CUDA graph can
+    capture it."""
+    counts = torch.zeros(n_tiles + 1, dtype=torch.int32, device=flat_tile.device)
+    ones = torch.ones(flat_tile.shape, dtype=torch.int32, device=flat_tile.device)
+    return counts.index_add_(0, flat_tile.long(), ones)[:n_tiles]
+
+
 def bin_gaussians(
     means2d: torch.Tensor,
     radii: torch.Tensor,
@@ -85,9 +96,9 @@ def bin_gaussians(
     tile_id = (min_y[None, :] + dy) * tw + (min_x[None, :] + dx)
     flat_tile = torch.where(slot_ok, tile_id, torch.full_like(tile_id, T)).reshape(-1)
 
-    # per-tile counts are exact integer counts of the emitted slots; starts
-    # are their exclusive prefix sum
-    counts = torch.bincount(flat_tile.long(), minlength=T + 1)[:T].to(i32)
+    # per-tile counts are exact integer counts of the emitted slots (integer
+    # sums are exact in any order); starts are their exclusive prefix sum
+    counts = slot_counts(flat_tile, T)
     bounds = torch.cat([torch.zeros(1, dtype=i32, device=dev),
                         torch.cumsum(counts, dim=0, dtype=i32)])
     starts = bounds[:T]

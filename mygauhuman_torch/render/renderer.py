@@ -139,7 +139,9 @@ def render_frame(
     world_normal = normalize(world_normal)
 
     R_w2c = camera.w2c[:3, :3]
-    flip_y = torch.tensor([1.0, -1.0, 1.0], dtype=torch.float32, device=means3d.device)
+    # filled on the device: a CUDA graph capture refuses copies from the host
+    flip_y = torch.ones(3, dtype=torch.float32, device=means3d.device)
+    flip_y[1:2].fill_(-1.0)
 
     def to_cam01(v):
         return (v @ R_w2c.T) * flip_y * 0.5 + 0.5

@@ -686,3 +686,122 @@ def test_blend_instances_strip_at_tile_base(cuda, w, h):
     tol = 1e-4 * want_g.abs().max(dim=1, keepdim=True).values + 1e-6
     assert bool(((got - want_g).abs() <= tol).all())
     assert float(want_g[:7].abs().max()) > 1e-3
+
+
+# ---- the captured serving frame (render/graph.py) -------------------------
+#
+# A graph replays the same kernels on the same inputs as the eager frame, so
+# every field is held bit for bit; requests interleave views and epsilons,
+# so a static input that a request failed to overwrite shows up.
+
+GRAPH_FIELDS = ("render", "render_depth", "render_alpha", "normal", "world_normal",
+                "albedo", "occlusion", "roughness", "render_axis", "radii", "transforms",
+                "translation")
+GRAPH_REQUESTS = [(0, 0.0), (1, 3e-12), (0, 1e-3), (3, 2e-12), (2, -1e-3)]
+
+
+@pytest.fixture(scope="module")
+def graph_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest "
+                    "tests/test_torch_kernels.py on the GPU")
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.render import render_frame
+
+    cfg = RasterizerConfig(tile_capacity=1024, chunk_tiles=64, instance_capacity=4 * 1024)
+    scene = make_synthetic_scene(n_views=4, width=128, height=128, n_verts=400,
+                                 raster_config=cfg, device="cuda")
+    kw = dict(bg=torch.tensor([0.1, 0.3, 0.6], device="cuda"), active_sh_degree=0,
+              config=cfg)
+    with torch.no_grad():
+        rows = [render_frame(scene.gt_state, b.camera, b.frame, scene.smpl_model, **kw)
+                for b in scene.batches]
+    return scene, kw, [dict(transforms=r.transforms, translation=r.translation) for r in rows]
+
+
+def eager_frame(scene, kw, v, eps, replay):
+    from mygauhuman_torch.render import render_frame
+
+    st = scene.gt_state
+    st = st._replace(params=st.params._replace(opacity=st.params.opacity + eps))
+    b = scene.batches[v]
+    with torch.no_grad():
+        return render_frame(st, b.camera, b.frame, scene.smpl_model, **kw, **replay)
+
+
+@pytest.mark.parametrize("branch", ["deform", "replay"])
+def test_graphed_frames_match_eager_bit_for_bit(graph_scene, branch):
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    scene, kw, rows = graph_scene
+    renderer = GraphedRenderer(scene.gt_state, scene.smpl_model, **kw)
+    for v, eps in GRAPH_REQUESTS:
+        replay = rows[v] if branch == "replay" else {}
+        want = eager_frame(scene, kw, v, eps, replay)
+        got = renderer(scene.batches[v].camera, scene.batches[v].frame, opacity_eps=eps,
+                       **replay)
+        for f in GRAPH_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (v, eps, f)
+    assert renderer.captures == 1
+
+
+def test_graph_key_miss_captures_a_new_graph(graph_scene):
+    from mygauhuman_torch.data.camera import make_camera
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    scene, kw, rows = graph_scene
+    renderer = GraphedRenderer(scene.gt_state, scene.smpl_model, **kw)
+    b = scene.batches[1]
+    renderer(b.camera, b.frame, **rows[1])
+    c = b.camera
+    c2w = np.linalg.inv(c.w2c.cpu().numpy().astype(np.float64))
+    narrow = make_camera(c2w[:3, :3], c.w2c[:3, 3].cpu().numpy(), c.width, c.height,
+                         fovx=0.8, fovy=0.8, device="cuda")
+    got = renderer(narrow, b.frame, **rows[1])
+    assert renderer.captures == 2 and len(renderer.slots) == 2
+    from mygauhuman_torch.render import render_frame
+
+    with torch.no_grad():
+        want = render_frame(scene.gt_state, narrow, b.frame, scene.smpl_model, **kw, **rows[1])
+    for f in GRAPH_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    renderer(b.camera, b.frame, **rows[1])
+    assert renderer.captures == 2
+
+
+@pytest.mark.parametrize("branch", ["deform", "replay"])
+def test_graph_capture_makes_no_host_sync(graph_scene, branch):
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    scene, kw, rows = graph_scene
+    replay = rows[2] if branch == "replay" else {}
+    b = scene.batches[2]
+    eager_frame(scene, kw, 2, 0.0, replay)     # the per-device constants exist
+    renderer = GraphedRenderer(scene.gt_state, scene.smpl_model, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        renderer(b.camera, b.frame, opacity_eps=1e-12, **replay)   # warm-up + capture + replay
+        renderer(b.camera, b.frame, opacity_eps=2e-12, **replay)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert renderer.captures == 1
+
+
+def test_graph_replays_count_the_captured_launches(graph_scene):
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    scene, kw, rows = graph_scene
+    renderer = GraphedRenderer(scene.gt_state, scene.smpl_model, **kw)
+    b = scene.batches[0]
+    renderer(b.camera, b.frame)
+    (per_frame,) = renderer.launches.values()
+    assert per_frame["knn"] == per_frame["deform"] == per_frame["blend_fwd"] == 1
+    cuda_lib.reset_launches()
+    n = 5
+    for i in range(n):
+        renderer(b.camera, b.frame, opacity_eps=1e-12 * i)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == \
+        {k: n * v for k, v in per_frame.items()}

@@ -194,10 +194,10 @@ def test_interop_state_roundtrip(setup):
 
 
 def test_package_imports_no_jax():
-    """Importing the port loads neither jax nor mygauhuman_tpu, nor the
-    image libraries cv2 and imageio, nor h5py (the readers import those
-    inside the functions that use them): all are blocked in sys.modules
-    first, so any import of them raises."""
+    """Importing the port (and the repo root's bench_torch.py) loads neither
+    jax nor mygauhuman_tpu, nor the image libraries cv2 and imageio, nor
+    h5py (the readers import those inside the functions that use them): all
+    are blocked in sys.modules first, so any import of them raises."""
     code = (
         "import sys\n"
         "blocked = ('jax', 'mygauhuman_tpu', 'cv2', 'imageio', 'h5py')\n"
@@ -214,7 +214,8 @@ def test_package_imports_no_jax():
         "import mygauhuman_torch.data.dna_rendering, mygauhuman_torch.data.colmap\n"
         "import mygauhuman_torch.data.colmap_loader, mygauhuman_torch.data.blender\n"
         "import mygauhuman_torch.utils.network_gui, mygauhuman_torch.cli.convert\n"
-        "import mygauhuman_torch.cli.full_eval\n"
+        "import mygauhuman_torch.cli.full_eval, mygauhuman_torch.render.graph\n"
+        "import bench_torch\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
         "       and m.split('.')[0] in blocked]\n"
         "sys.exit(1 if bad else 0)\n"
