@@ -51,13 +51,26 @@ Phases, each of which must pass (any failure exits non-zero):
      step, with no plain-op storm under its autograd node); a 60-iteration
      train_loop (one kernel B backward per iteration) with
      densify events at 20 and 40 and an opacity reset at 50; the trained
-     views' PSNR / SSIM / LPIPS;
+     views' PSNR / SSIM / LPIPS; then the graphed train step
+     (train/graph.py, make_train_step(..., donate=True)), this slice's main
+     path at the bench point: from one state, a 120-iteration train_loop
+     with the eager step (scan_chunk 1) against the graphed one (scan_chunk
+     100) across densify events at 20, 40, 60 and 80 (one of them growing
+     the capacity) and an opacity reset at 100, every state leaf (both Adam
+     moments and the densify statistics too) and every iteration's metrics
+     bit for bit, every chunk under torch.cuda.set_sync_debug_mode("error"),
+     the path's launches (one kernel B backward per iteration and per
+     capture's warm-up); both loops' wall, then the steady state (CUDA
+     events, host clock, device busy share) and the launches per replay;
   6. the entry points a user runs, under build/cli_run/: `cli.train` at full
      width and the full branch-A budget (512^2, 6,890 Gaussians, 4 views,
      1,200 iterations, densify every 100 from 400, eval at 1,200, saves at
-     600 and 1,200): wall time, ms per iteration, test PSNR, Gaussians and
-     capacity, densify counters, each kernel's launches in the run (A, B, B's
-     backward, C in checkpoint mode, D1s and D2 each launched, D1 never);
+     600 and 1,200; the CLI's default: the donated step as captured CUDA
+     graphs, chunks of 100): wall time, ms per iteration, the graphs'
+     captures, seconds and launches per replay, peak device memory, test
+     PSNR, Gaussians and capacity, densify counters, each kernel's launches
+     in the run (A, B, B's backward once per iteration and per capture's
+     warm-up, C in checkpoint mode, D1s and D2 each launched, D1 never);
      the saved snapshot loaded back bit-equal to the live state, and a resume
      from it (--start_checkpoint) that starts at iteration 1,201; every
      kernel (A, B and its backward, C in checkpoint mode, D) against its
@@ -96,13 +109,16 @@ Phases, each of which must pass (any failure exits non-zero):
      it is installed, else the port's SMCReader accessors over the same
      arrays in memory) and its SMPL-X npz; `cli.train --smpl_type smplx` for
      500 iterations (frames 1224x1024, kernel C tile-major in checkpoint
-     mode in the step; saves at 250 and 500, eval at 500): wall time, ms per
-     iteration, Gaussians, launches (no planar blend, no D1, one kernel B
-     backward per iteration), the overflow counters of each logged step,
+     mode in the step, graphed as in phase 6: a graph per training camera's
+     fov; saves at 250 and 500, eval at 500): wall time, ms per iteration,
+     the graphs as in phase 6, Gaussians, launches (no planar blend, no D1,
+     one kernel B backward per iteration and per warm-up), the overflow
+     counters of each logged step,
      test PSNR; every kernel against its plain version on the inputs of the
      CLI's own step at chkpnt500 (A at the state's capacity x 10,475 refs,
      B forward and backward bit-equal, C tile-major with its checkpoints
-     against D1's, D1s + D2), the step twice bit-equal and its profile; a
+     against D1's, D1s + D2), the graphed step twice bit-equal and the
+     profiles of a replay and of the eager step; a
      branch-A step on a 128^2 SMPL-X scene (1,000 Gaussians) on the card
      against the CPU; `cli.render` on both branches (the replay cache
      bit-equal to the eval's deform transforms, the replay image bit-equal
@@ -129,7 +145,8 @@ Phases, each of which must pass (any failure exits non-zero):
      at 1% of its entries, within 1e-3), over the 20 iterations the losses
      and the light within 1e-3, the geometry bit-equal; (c) cli.train
      --multichip for 600 iterations on 2 ranks against 1 rank (the
-     single-device step): the same densify iterations and capacities,
+     single-device step, graphed; both with --scan_chunk 1, so that every
+     iteration's loss is seen): the same densify iterations and capacities,
      iteration 1's loss within 1e-5, the losses of iterations 1-20 within
      2e-3 relative (the JAX loop test's bound, where the runs differ by
      rounding alone), and past them fixed ceilings on the drift that 600
@@ -150,7 +167,8 @@ Phases, each of which must pass (any failure exits non-zero):
      run; C tile-major, B's backward and D: every number measured on rank
      1's inputs of the sharded step, C tile-major on the 1224x1024 strip;
      `launches_path` and `measured_on` name them; the other paths'
-     launches in `launches_by_path`),
+     launches in `launches_by_path`, phase 5's graphed loop as
+     `loop_graph`),
      the card line, and as the last line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -178,6 +196,14 @@ FPS_FRAMES = 64
 PROFILE_FRAMES = 8
 TRAIN_STEPS = 100          # timed steps at the bench point
 LOOP_ITERS = 60            # the train_loop: densify at 20 and 40, opacity reset at 50
+GRAPH_LOOP_ITERS = 120     # eager vs graphed train_loop from one state (phase 5)
+GRAPH_CHUNK = 100          # cli.train's default --scan_chunk
+# densify at 20, 40, 60 and 80 with a low threshold, so that the free slots
+# run out and a later event grows the capacity; an opacity reset at 100
+GRAPH_LOOP = dict(densify_from_iter=20, densify_until_iter=100, densification_interval=20,
+                  opacity_reset_interval=100, densify_grad_threshold=2e-5)
+GRAPH_TIMED_STEPS = 100    # graphed replays timed in one chunk
+GRAPH_EAGER_STEPS = 20     # eager steps timed beside them
 GRAD_RTOL = 1e-3           # GPU vs CPU step: each gradient leaf within GRAD_RTOL max|CPU|
 KERNEL_D_RTOL = 1e-4       # kernel D vs plain: each component within 1e-4 max|plain| + 1e-6
 CKPT_RTOL = 1e-4           # D1 vs plain: T, T_final relative, chunk sums over the largest
@@ -857,13 +883,14 @@ def same_step_twice(step, ts, batch, deg, label):
     import torch
 
     from mygauhuman_torch.train import trainer as TT
-    from mygauhuman_torch.train.optim import tree_leaves
+    from mygauhuman_torch.train.optim import tree_leaves, tree_map
 
     a = step.loss_and_grads(ts, batch, deg)
     b = step.loss_and_grads(ts, batch, deg)
     same_grads = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[2]) + [a[3]],
                                                          tree_leaves(b[2]) + [b[3]]))
-    s1, _ = step(ts, batch, deg)
+    # a graphed step returns its own tensors, which the next call rewrites
+    s1 = tree_map(torch.clone, step(ts, batch, deg)[0])
     s2, _ = step(ts, batch, deg)
     same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(TT.trainable_params(s1)),
                                                          tree_leaves(TT.trainable_params(s2))))
@@ -1018,6 +1045,175 @@ def train_bench(scene, cfg, train, dev):
     return launches
 
 
+def train_graph_phase(scene, cfg, train, dev, card):
+    """Phase 5's graphed loop, this slice's main path at the bench point:
+    from one state, train_loop with the eager step (scan_chunk=1) against
+    the donated, graphed step (train/graph.py, scan_chunk=GRAPH_CHUNK) for
+    GRAPH_LOOP_ITERS iterations across densify events (one of them growing
+    the capacity) and an opacity reset: every state leaf (parameters, both
+    Adam moments, the densify statistics) and every iteration's metrics bit
+    for bit; every chunk under sync-debug "error"; the path's launches
+    (counts reset before it, read after); the wall of both loops, then the
+    steady state (CUDA events, the host clock, the device busy share under
+    torch.profiler) and the launches per replay. Returns the graphed loop's
+    launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.train import trainer as TT
+    from mygauhuman_torch.train.graph import stack_views
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    opt = OptimizationConfig(iterations=GRAPH_LOOP_ITERS, **GRAPH_LOOP)
+    kw = dict(bg=torch.zeros(3, device=dev), lpips_fn=train["lpips"], lpips_crop=train["crop"])
+    eager = TT.make_train_step(scene.smpl_model, train["tx"], opt, cfg, **kw)
+    graphed = TT.make_train_step(scene.smpl_model, train["tx"], opt, cfg, donate=True, **kw)
+    chunk = graphed.chunk
+    ts0, batches = train["ts"], scene.batches
+    runs = {}
+    for mode in ("eager", "graphed"):
+        per_it, events = [], []
+
+        def cb(it, ts, m):
+            if "capacity" in m:
+                events.append((it, m["capacity"], m["densify_alive"]))
+
+        if mode == "eager":
+            def step_fn(ts, b, deg):
+                ts, m = eager(ts, b, deg)
+                per_it.append(m)
+                return ts, m
+        else:
+            def checked_chunk(ts, views, idx, deg, pad_to=0):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = chunk(ts, views, idx, deg, pad_to)
+                except RuntimeError as e:
+                    require(False, f"a graphed chunk synchronised with the host: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                mseq, n = out[1]
+                per_it.extend({k: v[t] for k, v in mseq.items()} for t in range(n))
+                return out
+
+            step_fn = graphed
+            graphed.chunk = checked_chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        ts, _ = TT.train_loop(ts0, train["tx"], step_fn, batches, opt, extent=scene.extent,
+                              smpl_vertices=scene.big_pose_verts, max_sh_degree=3,
+                              callback=cb, scan_chunk=1 if mode == "eager" else GRAPH_CHUNK)
+        torch.cuda.synchronize()
+        runs[mode] = dict(ts=ts, per_it=per_it, events=events,
+                          wall=time.perf_counter() - t0, launches=dict(cuda_lib.LAUNCHES),
+                          peak_mb=torch.cuda.max_memory_allocated() / 1e6)
+    graphed.chunk = chunk
+    e, g = runs["eager"], runs["graphed"]
+    leaves_e, leaves_g = tree_leaves(e["ts"]), tree_leaves(g["ts"])
+    same_state = (len(leaves_e) == len(leaves_g) and e["ts"].step == g["ts"].step
+                  and e["ts"].opt_state.count == g["ts"].opt_state.count
+                  and all(torch.equal(a, b) for a, b in zip(leaves_e, leaves_g)))
+    require(len(g["per_it"]) == len(e["per_it"]) == GRAPH_LOOP_ITERS,
+            f"{len(g['per_it'])} graphed and {len(e['per_it'])} eager iterations' metrics")
+    bad = [(t + 1, k) for t in range(GRAPH_LOOP_ITERS) for k in e["per_it"][t]
+           if not torch.equal(e["per_it"][t][k], g["per_it"][t][k])]
+    launches, captures = g["launches"], graphed.captures
+    print(f"[train-graph] train_loop of {GRAPH_LOOP_ITERS} iterations at the bench point "
+          f"from one state, eager (scan_chunk 1) | graphed (donate, scan_chunk {GRAPH_CHUNK}): "
+          f"the final state bit-equal {same_state} ({len(leaves_g)} leaves: parameters, both "
+          f"Adam moments, the densify statistics; step {g['ts'].step}, counts "
+          f"{g['ts'].opt_state.count['xyz']}), every iteration's metrics bit-equal "
+          f"{not bad} ({len(e['per_it'][0])} per iteration); densify events (iteration, "
+          f"capacity, alive) {e['events']} | {g['events']}, opacity reset at "
+          f"{opt.opacity_reset_interval}; every chunk under sync-debug \"error\" without a "
+          f"host sync", flush=True)
+    require(same_state and not bad, f"graphed loop differs from the eager one: state "
+            f"{same_state}, metrics {bad[:10]}")
+    require(e["events"] == g["events"] and any(c > ts0.gauss.capacity for _, c, _ in g["events"]),
+            f"densify events {e['events']} | {g['events']}: none grew capacity "
+            f"{ts0.gauss.capacity}")
+    for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+                 "blend_bwd_sums", "blend_bwd_rows"):
+        require(launches[name] > 0, f"kernel {name} was not launched in the graphed loop")
+    # each capture's warm-up step runs eagerly, each iteration replays
+    require(launches["deform_bwd"] == GRAPH_LOOP_ITERS + captures
+            and launches["blend_bwd_ckpt"] == 0
+            and launches["blend_fwd_ckpt"] == launches["blend_bwd"],
+            f"graphed loop launches {launches} ({captures} captures)")
+
+    # the steady state from the final state: eager steps, graphed replays
+    views = stack_views(batches)
+    ts_g, ts_e = g["ts"], e["ts"]
+    ts_g, _ = graphed.chunk(ts_g, views, [0, 1, 2, 3], 0)
+    for i in range(3):
+        ts_e, _ = eager(ts_e, batches[i % 4], 0)
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        fn(n)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / n, (time.perf_counter() - t0) * 1e3 / n
+
+    def run_eager(n):
+        nonlocal ts_e
+        for i in range(n):
+            ts_e, _ = eager(ts_e, batches[i % 4], 0)
+
+    def run_graphed(n):
+        nonlocal ts_g
+        ts_g, _ = graphed.chunk(ts_g, views, [i % 4 for i in range(n)], 0)
+
+    res = {}
+    for mode, fn, n in (("eager", run_eager, GRAPH_EAGER_STEPS),
+                        ("graphed", run_graphed, GRAPH_TIMED_STEPS)):
+        ev_ms, host_ms = timed(fn, n)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(PROFILE_FRAMES)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / PROFILE_FRAMES
+        kernels_ = [k for k in prof.key_averages()
+                    if k.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(device_us(k) for k in kernels_) / PROFILE_FRAMES
+        res[mode] = dict(ev_ms=ev_ms, host_ms=host_ms, busy_us=busy_us, wall_us=wall_us,
+                         n=sum(k.count for k in kernels_) / PROFILE_FRAMES, top=kernels_)
+
+    def busy(r):
+        if r["busy_us"] <= 0:
+            return "device busy not measured (no CUDA events)"
+        share = 100 * r["busy_us"] / (1e3 * r["ev_ms"])
+        return (f"device busy {r['busy_us']:.0f} us/step, {share:.1f}% "
+                f"of the unprofiled step, {100 * r['busy_us'] / r['wall_us']:.1f}% of the "
+                f"{r['wall_us']:.0f} us under the profiler, {r['n']:.0f} device kernels/step")
+
+    re_, rg = res["eager"], res["graphed"]
+    print(f"[train-graph] loops' wall: eager {e['wall']:.3f} s "
+          f"({1e3 * e['wall'] / GRAPH_LOOP_ITERS:.3f} ms/iteration), graphed {g['wall']:.3f} s ({1e3 * g['wall'] / GRAPH_LOOP_ITERS:.3f} "
+          f"ms/iteration; {captures} captures, {graphed.released} released, "
+          f"{graphed.capture_s:.3f} s of warm-ups and captures, "
+          f"{1e3 * (g['wall'] - graphed.capture_s) / GRAPH_LOOP_ITERS:.3f} ms/iteration "
+          f"without them); peak device memory eager {e['peak_mb']:.1f} MB, graphed "
+          f"{g['peak_mb']:.1f} MB; graphed path launches {launches} ({card})", flush=True)
+    print(f"[train-graph] steady state at capacity {ts_g.gauss.capacity}, eager "
+          f"({GRAPH_EAGER_STEPS} steps) | graphed ({GRAPH_TIMED_STEPS} replays in one chunk): "
+          f"CUDA events {re_['ev_ms']:.3f} | {rg['ev_ms']:.3f} ms/step, host clock "
+          f"{re_['host_ms']:.3f} | {rg['host_ms']:.3f} ms/step; eager {busy(re_)}; graphed "
+          f"{busy(rg)}; launches per replay "
+          f"{ {k.capacity: v for k, v in graphed.launches.items()} } ({card})", flush=True)
+    for k in sorted(rg["top"], key=device_us, reverse=True)[:8]:
+        print(f"[profile]   graphed step {device_us(k) / PROFILE_FRAMES:8.1f} us/step "
+              f"{k.count / PROFILE_FRAMES:5.1f}x  {k.key[:90]}")
+    return launches
+
+
 def cli_kernel_checks(out, step, template, b0, its, n_sm, run="cli.train"):
     """Every kernel of cli.train's step against its plain version on the
     inputs that step gives it (`step` on view `b0`), under the CLI's raster
@@ -1063,6 +1259,21 @@ def cli_kernel_checks(out, step, template, b0, its, n_sm, run="cli.train"):
     return reports[its[0]]
 
 
+def graph_line(res, iters, tag, peak_mb):
+    """cli.train's branch-A graphs: captures, their seconds, launches per
+    replay, peak device memory of the run. Requires that it ran graphed."""
+    g = res["graph"]
+    keys = [(k["width"], k["height"], round(k["tan_fovx"], 4), k["capacity"],
+             k["active_sh_degree"]) for k in g["launches_per_replay"]]
+    per = {tuple(sorted(k["launches"].items())) for k in g["launches_per_replay"]}
+    print(f"{tag}: graphed, {g['captures']} captures ({g['released']} released by capacity "
+          f"growth) in {g['capture_s']:.3f} s of warm-ups and captures "
+          f"({g['capture_s'] / max(g['captures'], 1):.3f} s each); live keys (width, height, "
+          f"tan_fovx, capacity, SH degree) {keys}; launches per replay {[dict(p) for p in per]}; "
+          f"{iters} iterations, peak device memory allocated {peak_mb:.1f} MB", flush=True)
+    require(g["captures"] > 0, f"{tag}: the branch-A loop did not run graphed")
+
+
 def cli_phase(dev, n_sm):
     """The entry points: cli.train's 1,200 iterations, the snapshot reloaded
     and resumed, each kernel on the inputs of the run's step, cli.render on
@@ -1086,6 +1297,7 @@ def cli_phase(dev, n_sm):
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     out = CLI_DIR / "train"
     cuda_lib.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = cli_train.main(synth + [
         "--iterations", str(CLI_ITERS),
@@ -1094,6 +1306,7 @@ def cli_phase(dev, n_sm):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train_launches = dict(cuda_lib.LAUNCHES)
+    graph_line(res, CLI_ITERS, "[cli] train", torch.cuda.max_memory_allocated() / 1e6)
     phases = res["phases"]
     side_s = sum(v["total_s"] for v in phases.values())
     print(f"[cli] train: {CLI_ITERS} iterations in {res['elapsed_s']:.3f} s "
@@ -1117,8 +1330,10 @@ def cli_phase(dev, n_sm):
     for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
                  "blend_bwd_sums", "blend_bwd_rows"):
         require(train_launches[name] > 0, f"cli.train: kernel {name} was not launched")
-    require(train_launches["deform_bwd"] == CLI_ITERS,
-            f"{train_launches['deform_bwd']} kernel B backward passes in {CLI_ITERS} iterations")
+    # one kernel B backward per iteration (replayed) and per capture's warm-up step
+    require(train_launches["deform_bwd"] == CLI_ITERS + res["graph"]["captures"],
+            f"{train_launches['deform_bwd']} kernel B backward passes in {CLI_ITERS} iterations "
+            f"and {res['graph']['captures']} warm-ups")
     require(train_launches["blend_bwd_ckpt"] == 0, "cli.train launched D1")
     require(train_launches["blend_fwd_ckpt"] == train_launches["blend_bwd"],
             "cli.train: a differentiated forward without its backward, or the reverse")
@@ -1975,6 +2190,7 @@ def dna_phase(dev, n_sm, card):
     with dna_source(tree, src) as how:
         print(f"[dna] the capture is read from {how} ({card})", flush=True)
         cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with patched(TT, "make_train_step", keep("step")), \
                 patched(TT, "train_loop", keep("loop")), \
@@ -1986,6 +2202,8 @@ def dna_phase(dev, n_sm, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cuda_lib.LAUNCHES)
+        graph_line(res, DNA_ITERS, "[dna] cli.train --smpl_type smplx",
+                   torch.cuda.max_memory_allocated() / 1e6)
         phases = res["phases"]
         side_s = sum(v["total_s"] for v in phases.values())
         batches = made["loop"][0][3]
@@ -2020,7 +2238,8 @@ def dna_phase(dev, n_sm, card):
             require(launches[name] > 0, f"cli.train on the capture: kernel {name} not launched")
         require(launches["blend_fwd"] == launches["blend_fwd_tiles"],
                 "a 1224-wide frame took the planar layout")
-        require(launches["deform_bwd"] == DNA_ITERS and launches["blend_bwd_ckpt"] == 0
+        require(launches["deform_bwd"] == DNA_ITERS + res["graph"]["captures"]
+                and launches["blend_bwd_ckpt"] == 0
                 and launches["blend_fwd_ckpt"] == launches["blend_bwd"],
                 f"cli.train on the capture: launches {launches}")
 
@@ -2033,7 +2252,11 @@ def dna_phase(dev, n_sm, card):
         deg = active_sh_degree_at(DNA_ITERS, 3)
         same_step_twice(step, ts_end, b0, deg, f"the SMPL-X step at chkpnt{DNA_ITERS}")
         profile_calls(lambda: step(ts_end, b0, deg), PROFILE_FRAMES,
-                      f"SMPL-X step at chkpnt{DNA_ITERS}, {b0.camera.width}x{b0.camera.height}")
+                      f"SMPL-X step at chkpnt{DNA_ITERS} (graphed: a copy of the state in, "
+                      f"a replay), {b0.camera.width}x{b0.camera.height}")
+        profile_calls(lambda: step.eager(ts_end, b0, deg), PROFILE_FRAMES,
+                      f"SMPL-X step at chkpnt{DNA_ITERS} (eager), "
+                      f"{b0.camera.width}x{b0.camera.height}")
         # the step's two image-sized loss terms alone, forward and backward,
         # on the frame: one of its two SSIM terms (the separable blur), and
         # its LPIPS pair on the crop the CLI sized (the VGG convolutions)
@@ -2652,6 +2875,10 @@ def mc_cli_run(key, n, root=None):
     argv = ["--synthetic", "--synthetic_size", str(CLI_SCENE["size"]), "--synthetic_verts",
             str(CLI_SCENE["verts"]), "--synthetic_views", str(CLI_SCENE["views"]),
             "--multichip", "--iterations", str(MC_ITERS), "--test_iterations", str(MC_ITERS),
+            # one step per call, so that the callback sees every iteration's
+            # loss (the 1-rank run's donated step would chunk by 100; the
+            # sharded step has no chunk program)
+            "--scan_chunk", "1",
             "--skip_galleries", "--model_path",
             str(MC_DIR.relative_to(Path(__file__).resolve().parent) / f"cli-{key}"),
             "--device", "cuda"]
@@ -3142,6 +3369,9 @@ def main() -> None:
             check_kernel_b_bwd(tseen["deform_rows_bwd_cuda"], report)
     train_gpu_vs_cpu(dev)
     loop_launches = train_bench(scene, cfg, train, dev)
+    t0 = time.perf_counter()
+    train_graph_launches = train_graph_phase(scene, cfg, train, dev, card)
+    print(f"[train-graph] took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 6: the entry points -------------------------------------------
     t0 = time.perf_counter()
@@ -3175,7 +3405,8 @@ def main() -> None:
     # `blend_fwd` counts every kernel C launch and `blend_fwd_tiles` the
     # tile-major ones; from here `blend_fwd` is the planar launches (the TPU
     # row kernel's), so each row counts its own layout
-    for counts in (serving_launches, graph_launches, loop_launches, *cli_launches.values(),
+    for counts in (serving_launches, graph_launches, loop_launches, train_graph_launches,
+                   *cli_launches.values(),
                    *pbr_launches.values(), *dna_launches.values(), *mc_launches.values()):
         counts["blend_fwd"] -= counts["blend_fwd_tiles"]
     cli_train_launches = cli_launches.pop("cli_train")
@@ -3213,9 +3444,12 @@ def main() -> None:
     # counts, each number measured on rank 1's inputs of the sharded step,
     # as is kernel C tile-major's (on a 1224x1024 frame's strip).
     # `launches_path` names the path of `launches`, `measured_on` that of
-    # the numbers; every path's counts are in `launches_by_path`
+    # the numbers; every path's counts are in `launches_by_path`, the
+    # graphed training paths among them (phase 5's `loop_graph`, phase 6's
+    # `cli_train`, phase 8's `smplx_dna`)
     paths = {"serving": serving_launches, "serving_graph": graph_launches,
-             "loop": loop_launches, "cli_train": cli_train_launches, **cli_launches,
+             "loop": loop_launches, "loop_graph": train_graph_launches,
+             "cli_train": cli_train_launches, **cli_launches,
              **pbr_launches, **dna_launches, **mc_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

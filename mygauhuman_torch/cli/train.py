@@ -43,11 +43,18 @@ and the returned state. Only rank 0 evaluates and writes files. Each rank
 prints its per-Gaussian state bytes against the whole state's at the start
 and at the end. On one process it runs the single-device step, as the JAX
 CLI does with one device.
+Branch A trains with the donated step, as the JAX CLI does: on the card a
+captured CUDA graph of the step replayed in chunks of `--scan_chunk`
+iterations (1 under `--gui`), each ending at every densify, reset or
+SH-ramp boundary and at every test, save and logged iteration
+(`train/graph.py`); on the CPU the same staging around the eager step.
+`--multichip` on several ranks keeps the eager sharded step (its gloo
+collectives stage through host memory, which a graph cannot capture), and
+branch B runs one eager step per call.
 Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
-command returns at once without training), `--scan_chunk` and
-`--occ_budget_mb` (the loops run one step per call, with the same
-schedule; the budget sized the JAX chunk program's occlusion buffer),
-`--use_pallas` (the device picks the kernels).
+command returns at once without training), `--occ_budget_mb` (it sized
+the JAX chunk program's occlusion buffer in branch B, whose loop here runs
+one step per call), `--use_pallas` (the device picks the kernels).
 
 Deliberate difference from the JAX CLI: on `--synthetic` the test split is
 every view (there: the first), so the replay cache covers every view that
@@ -118,8 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted, no effect: CUDA tensors run the CUDA kernels, "
                         "CPU tensors their plain versions")
     p.add_argument("--scan_chunk", type=int, default=100,
-                   help="accepted, no effect: the loop runs one step per call; "
-                        "the schedule is the same as with any chunk")
+                   help="branch-A iterations per replayed chunk of the captured step "
+                        "(1 under --gui); the schedule is the same with any chunk")
     p.add_argument("--multichip", action="store_true",
                    help="the tile-sharded steps over the ranks of a torch.distributed.run "
                         "launch (one process: the single-device step)")
@@ -130,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "keep visibility 1, counted as bake_out_of_budget")
     p.add_argument("--occ_budget_mb", type=float, default=1024.0,
                    help="accepted, no effect: it sizes the JAX chunk program's "
-                        "occlusion buffer; the loop here runs one step per call")
+                        "occlusion buffer in branch B, whose loop here runs one step "
+                        "per call")
     p.add_argument("--exchange_capacity", type=int, default=16384,
                    help="multichip exchange window; read only with --multichip")
     p.add_argument("--precompile", action="store_true",
@@ -191,7 +199,9 @@ def load_body_model(smpl_type: str, model_path: str, source_path: str, device):
 
 def main(argv=None) -> dict:
     """Train; returns {elapsed_s, final_loss, test_psnr, out_dir} as the JAX
-    CLI does, plus the run's record: first / last iteration, Gaussians alive
+    CLI does, plus the run's record: the first / last iteration it ran,
+    the branch-A graphs (`graph`: `GraphedTrainStep.record()`, else None
+    under --multichip on several ranks), Gaussians alive
     and capacity at the end, the densify events' counters, the eval and save
     phases' times, the final TrainState (`state`, whole on every rank), and
     with branch B its PbrState (`pbr_state`) and `pbr` {iterations,
@@ -382,8 +392,10 @@ def main(argv=None) -> dict:
         def step_fn(ts, batch, deg):
             return base_step(ts, stack_batches([batch]), deg)
     else:
+        # the state is donated to the captured step, as the JAX CLI donates it
         step_fn = make_train_step(smpl_model, tx, cfg, raster_cfg, bg=bg, lpips_fn=lpips_obj,
-                                  lpips_crop=lpips_crop)
+                                  lpips_crop=lpips_crop, donate=True)
+    scan_chunk = 1 if args.gui else max(1, args.scan_chunk)
     # only rank 0 writes: the other ranks log nowhere
     logger = MetricLogger(out_dir) if is_main else _NoLogger()
     timer = PhaseTimer()
@@ -511,9 +523,6 @@ def main(argv=None) -> dict:
 
     def callback(it, ts, metrics):
         nonlocal last_psnr
-        if seen["first"] is None:
-            seen["first"] = it
-        seen["last"] = it
         if it % 100 == 0 or it == 1:
             logger.log(it, metrics)
             logger.log(it, {"n_gaussians": num_alive(ts)}, prefix="scene")
@@ -541,8 +550,19 @@ def main(argv=None) -> dict:
             extent=extent, smpl_vertices=smpl_vertices,
             max_sh_degree=args.sh_degree, seed=args.seed, callback=callback,
             num_iterations=phase_a_iters, start_iteration=start_iteration,
-            sharding=sharding,
+            sharding=sharding, scan_chunk=scan_chunk,
+            # the test and save iterations, and the logged ones, so that
+            # metrics.jsonl holds the rows of an unchunked run
+            callback_iters=tuple(sorted(set(args.test_iterations) | set(args.save_iterations)
+                                        | {1, *range(100, phase_a_iters + 1, 100)})),
         )
+        # the iterations the loop ran (chunked, its callbacks skip some)
+        seen["first"], seen["last"] = start_iteration + 1, phase_a_iters
+    graph = step_fn.record() if hasattr(step_fn, "record") else None
+    if graph is not None and is_main:
+        print(f"branch A graphs: {graph['captures']} captured ({graph['released']} released "
+              f"by capacity growth) in {graph['capture_s']:.1f}s of warm-ups and captures, "
+              f"chunks of {scan_chunk}")
 
     pbr_state, pbr_record = None, None
     if cfg.iterations > cfg.pbr_iteration:
@@ -622,7 +642,7 @@ def main(argv=None) -> dict:
     return {"elapsed_s": elapsed,
             "final_loss": float(metrics.get("loss", 0.0)),
             "test_psnr": last_psnr, "out_dir": out_dir,
-            "first_iteration": seen["first"], "last_iteration": seen["last"],
+            "first_iteration": seen["first"], "last_iteration": seen["last"], "graph": graph,
             "n_gaussians": n_alive, "capacity": ts.gauss.capacity,
             "densify": seen["densify"], "phases": timer.summary(), "state": ts,
             "pbr_state": pbr_state, "pbr": pbr_record,

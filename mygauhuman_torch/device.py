@@ -5,6 +5,8 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
+_CONSTANTS: dict = {}
+
 
 def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     """torch.device for an entry point; raises if CUDA is asked for but absent.
@@ -27,3 +29,14 @@ def exact_convs():
     the backward: cuDNN reads the flags when each convolution runs."""
     return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                       allow_tf32=False)
+
+
+def device_constant(name: str, values, device: torch.device) -> torch.Tensor:
+    """The float32 tensor of `values`, made once per (name, device) and kept:
+    a CUDA graph capture refuses copies from the host, so a constant that a
+    captured step reads must already be on the card. Callers never write
+    to it."""
+    key = (name, torch.device(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.as_tensor(values, dtype=torch.float32, device=device)
+    return _CONSTANTS[key]

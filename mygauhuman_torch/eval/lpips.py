@@ -21,7 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mygauhuman_torch.device import DEFAULT_DEVICE, exact_convs, resolve_device
+from mygauhuman_torch.device import (
+    DEFAULT_DEVICE,
+    device_constant,
+    exact_convs,
+    resolve_device,
+)
 
 # VGG16 conv plan: (out_channels, pool_before)
 _VGG_PLAN = [
@@ -91,8 +96,8 @@ def export_torch_weights(out_path: str, vgg_state: dict, lin_state: dict) -> Non
 
 def _features(params: LPIPSParams, x: torch.Tensor) -> list:
     """x: [N, H, W, 3] in [0, 1] -> the five stage activations [N, C, h, w]."""
-    shift = torch.tensor(_SHIFT, device=x.device)
-    scale = torch.tensor(_SCALE, device=x.device)
+    shift = device_constant("lpips_shift", _SHIFT, x.device)
+    scale = device_constant("lpips_scale", _SCALE, x.device)
     x = ((x * 2.0 - 1.0 - shift) / scale).permute(0, 3, 1, 2)
     feats = []
     for si, (start, end) in enumerate(zip(_STAGE_STARTS, _STAGE_ENDS)):

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mygauhuman_torch.device import exact_convs
+from mygauhuman_torch.device import device_constant, exact_convs
 
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -60,8 +60,8 @@ def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 def _filter2d(img: torch.Tensor, window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
     """Separable Gaussian blur of [H, W, C] with zero padding."""
-    g = torch.as_tensor(_gaussian_taps(window_size, sigma).astype(np.float32),
-                        device=img.device)
+    g = device_constant(f"ssim_taps_{window_size}_{sigma}",
+                        _gaussian_taps(window_size, sigma).astype(np.float32), img.device)
     half = window_size // 2
     x = img.permute(2, 0, 1)[:, None]                       # [C, 1, H, W]
     with exact_convs():

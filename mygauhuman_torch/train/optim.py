@@ -14,6 +14,13 @@ Each group is optax's `chain(scale_by_adam(b1=0.9, b2=0.999, eps), -lr)`:
   p += -lr (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
 with a step count per group, kept on the host. xyz's lr is `expon_lr` of
 its group's count before the update.
+
+A captured CUDA graph of the step (train/graph.py) cannot read the host
+counts: it bakes in the scalars of the step it captured. So `Adam.step`
+also takes the scalars of each group's update as a device tensor
+(`staged`, rows of `Adam.staged_rows`), which the graph's caller refills
+before every replay; with them the update is bit for bit the one the host
+scalars give (`adam_leaf_staged`).
 """
 from __future__ import annotations
 
@@ -36,6 +43,10 @@ GAUSS_GROUPS = {
     "normal": "normal", "albedo": "albedo", "roughness": "roughness",
 }
 MLP_GROUPS = {"pose_refiner": "pose_decoder", "lbs_offset": "lweight_offset_decoder"}
+# every group, in the order of a staged table's rows
+GROUPS = (*GAUSS_GROUPS.values(), *MLP_GROUPS.values())
+# the columns of a staged row: one update's host scalars as float32
+STAGED = ("bc1", "bc2", "neg_lr", "inv_bc1", "inv_bc2")
 
 
 class TrainableParams(NamedTuple):
@@ -135,6 +146,30 @@ def adam_leaf(p, g, mu, nu, lr: float, count: int, eps: float):
     return p + (-lr) * upd, mu, nu
 
 
+def staged_row(lr: float, count: int) -> np.ndarray:
+    """The scalars of one update after `count` updates (this one included)
+    as float32, in the columns of STAGED: what `adam_leaf`'s host floats
+    become in its kernels."""
+    bc1 = np.float32(1 - np.float32(B1) ** count)
+    bc2 = np.float32(1 - np.float32(B2) ** count)
+    one = np.float32(1.0)
+    return np.array([bc1, bc2, np.float32(-lr), one / bc1, one / bc2], np.float32)
+
+
+def adam_leaf_staged(p, g, mu, nu, row: torch.Tensor, eps: float):
+    """`adam_leaf` with its scalars read from `row` ([5] float32 on p's
+    device, a `staged_row`), bit for bit: PyTorch's CUDA division by a host
+    float multiplies by its float32 reciprocal, so on CUDA the bias
+    corrections are products with the staged reciprocals; the CPU divides."""
+    mu = (1 - B1) * g + B1 * mu
+    nu = (1 - B2) * (g * g) + B2 * nu
+    if p.is_cuda:
+        upd = (mu * row[3]) / (torch.sqrt(nu * row[4]) + eps)
+    else:
+        upd = (mu / row[0]) / (torch.sqrt(nu / row[1]) + eps)
+    return p + row[2] * upd, mu, nu
+
+
 class Adam(NamedTuple):
     """The per-group optimizer (the LR table of gaussian_model.py:266-282)."""
 
@@ -159,38 +194,58 @@ class Adam(NamedTuple):
 
     def init(self, params: TrainableParams) -> AdamState:
         zeros = tree_map(torch.zeros_like, params)
-        return AdamState(count={g: 0 for g in (*GAUSS_GROUPS.values(), *MLP_GROUPS.values())},
+        return AdamState(count={g: 0 for g in GROUPS},
                          mu=zeros, nu=tree_map(torch.zeros_like, params))
 
-    def _leaf(self, p, g, mu, nu, lr, count):
-        return adam_leaf(p, g, mu, nu, lr, count, self.cfg.adam_eps)
+    def staged_rows(self, count: dict, k: int) -> np.ndarray:
+        """[k, len(GROUPS), 5] float32: the staged rows of k successive
+        updates of every group from the counts `count`."""
+        rows = np.zeros((k, len(GROUPS), len(STAGED)), np.float32)
+        for gi, group in enumerate(GROUPS):
+            for t in range(k):
+                c = count[group] + t
+                rows[t, gi] = staged_row(self.lr(group, c), c + 1)
+        return rows
 
     def step(self, params: TrainableParams, grads: TrainableParams, state: AdamState,
-             groups: tuple | None = None) -> tuple[TrainableParams, AdamState]:
+             groups: tuple | None = None, staged: torch.Tensor | None = None
+             ) -> tuple[TrainableParams, AdamState]:
         """One update of every group, or of the named `groups` only (the
         others keep their parameters, moments and count, and their gradients
-        are not read) -> (new params, new state)."""
+        are not read) -> (new params, new state). With `staged` ([len(GROUPS),
+        5] on the parameters' device, the rows of this update) the scalars
+        are read from it instead of being computed from the counts."""
         count = dict(state.count)
+        eps = self.cfg.adam_eps
+
+        def leaf_fn(group):
+            """The update of one of `group`'s leaves; advances its count."""
+            if staged is not None:
+                row = staged[GROUPS.index(group)]
+                count[group] += 1
+                return lambda p, g, m, v: adam_leaf_staged(p, g, m, v, row, eps)
+            lr = self.lr(group, count[group])
+            count[group] += 1
+            c = count[group]
+            return lambda p, g, m, v: adam_leaf(p, g, m, v, lr, c, eps)
+
         new_p, new_mu, new_nu = {}, {}, {}
         for field, group in GAUSS_GROUPS.items():
             p, mu, nu = (getattr(t.gaussians, field) for t in (params, state.mu, state.nu))
             if groups is not None and group not in groups:
                 new_p[field], new_mu[field], new_nu[field] = p, mu, nu
                 continue
-            lr = self.lr(group, count[group])
-            count[group] += 1
-            new_p[field], new_mu[field], new_nu[field] = self._leaf(
-                p, getattr(grads.gaussians, field), mu, nu, lr, count[group])
+            new_p[field], new_mu[field], new_nu[field] = leaf_fn(group)(
+                p, getattr(grads.gaussians, field), mu, nu)
         out = {"gaussians": tuple(GaussianParams(**d) for d in (new_p, new_mu, new_nu))}
         for field, group in MLP_GROUPS.items():
             tree = getattr(params, field)
             if groups is not None and group not in groups:
                 out[field] = (tree, getattr(state.mu, field), getattr(state.nu, field))
                 continue
-            lr = self.lr(group, count[group])
-            count[group] += 1
+            fn = leaf_fn(group)
             leaves = []
-            tree_map(lambda p, g, m, v: leaves.append(self._leaf(p, g, m, v, lr, count[group])),
+            tree_map(lambda p, g, m, v: leaves.append(fn(p, g, m, v)),
                      tree, getattr(grads, field), getattr(state.mu, field),
                      getattr(state.nu, field))
             its = [iter([leaf[i] for leaf in leaves]) for i in range(3)]

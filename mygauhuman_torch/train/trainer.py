@@ -11,10 +11,18 @@ dL/dmeans2D for the densify statistics is the gradient of the explicit
 `densify_grad_scale`, as the JAX package does for the reference's
 `screenspace_points.grad`.
 
-Differences from the JAX trainer, by design: no chunked multi-step program
-(the JAX `_chunk` fori_loop only amortised per-dispatch latency; this loop
-is plain Python), split noise from a `torch.Generator`, and the step count
-is a host int.
+`make_train_step(..., donate=True)` is the JAX trainer's donated, jitted
+step: on the card it replays a captured CUDA graph of the step, which
+writes the new state into the state's own tensors (train/graph.py), and
+`step.chunk` replays it for up to `scan_chunk` iterations from a `[V, ...]`
+stack of the views, as the JAX chunk program runs them in one dispatch.
+`train_loop(scan_chunk=K)` ends a chunk at every densify, opacity-reset or
+SH-ramp boundary and at every iteration in `callback_iters`, so the
+schedule is the one of `scan_chunk=1`; only the callback cadence changes.
+
+Differences from the JAX trainer, by design: one graph per camera fov (a
+JAX program takes the fovs as traced inputs), split noise from a
+`torch.Generator`, and the step count is a host int.
 """
 from __future__ import annotations
 
@@ -25,13 +33,14 @@ import torch
 
 from mygauhuman_torch.config import OptimizationConfig
 from mygauhuman_torch.data.camera import Camera
-from mygauhuman_torch.device import exact_convs
+from mygauhuman_torch.device import device_constant, exact_convs
 from mygauhuman_torch.models import gaussians as G
 from mygauhuman_torch.models.smpl import SMPLModel
 from mygauhuman_torch.ops.rasterize import RasterizerConfig, densify_grad_scale
 from mygauhuman_torch.render.renderer import FrameInputs, render_frame
 from mygauhuman_torch.train import losses as L
 from mygauhuman_torch.train.checkpoint import save_checkpoint
+from mygauhuman_torch.train.graph import GraphedTrainStep, stack_views
 from mygauhuman_torch.train.optim import (
     Adam,
     AdamState,
@@ -156,13 +165,20 @@ def compute_losses_a(out, batch: TrainBatch, scaling_mean: torch.Tensor,
 
 def make_train_step(smpl_model: SMPLModel, tx: Adam, cfg: OptimizationConfig,
                     raster_config: RasterizerConfig, bg: torch.Tensor,
-                    lpips_fn: Callable | None = None, lpips_crop: int = LPIPS_CROP):
+                    lpips_fn: Callable | None = None, lpips_crop: int = LPIPS_CROP,
+                    donate: bool = False):
     """The train step: step(ts, batch, active_sh_degree) -> (new ts, metrics).
 
     The metrics are 0-d tensors on the state's device (reading them waits
-    for the device). The input state is not modified.
-    `step.loss_and_grads(ts, batch, active_sh_degree)` is its first half:
-    (loss, metrics, gradient TrainableParams, dL/dmeans2d_offset, radii)."""
+    for the device). With donate=False the step is functional: the input
+    state is not modified. With donate=True it is a
+    `train/graph.GraphedTrainStep`: captured CUDA graphs on the card, the
+    eager step with the same staging on the CPU; it writes the new state
+    into the tensors of the state it returns, so the state passed in is
+    consumed, and it has `step.chunk(ts, views, idx, deg, pad_to)`.
+    `step.loss_and_grads(ts, batch, active_sh_degree)` is the first half:
+    (loss, metrics, gradient TrainableParams, dL/dmeans2d_offset, radii);
+    `step.eager` the functional step."""
 
     def loss_and_grads(ts: TrainState, batch: TrainBatch, active_sh_degree: int):
         params = tree_map(lambda x: x.detach().requires_grad_(True), trainable_params(ts))
@@ -188,20 +204,36 @@ def make_train_step(smpl_model: SMPLModel, tx: Adam, cfg: OptimizationConfig,
                        overflow_inst=out.overflow_inst)
         return total.detach(), metrics, gparams, grads[-1], out.radii
 
-    def step(ts: TrainState, batch: TrainBatch, active_sh_degree: int):
+    def apply(ts: TrainState, batch: TrainBatch, active_sh_degree: int,
+              staged: torch.Tensor | None = None, frozen: bool | None = None):
+        """The functional step; Adam's scalars from `staged` when given (the
+        graphed step's row), the geometry frozen per `frozen` (by default
+        from ts.step)."""
         _, metrics, gparams, g_m2d, radii = loss_and_grads(ts, batch, active_sh_degree)
-        mask = geometry_freeze_mask(gparams, ts.step >= cfg.pbr_iteration)
+        frozen = ts.step >= cfg.pbr_iteration if frozen is None else frozen
+        mask = geometry_freeze_mask(gparams, frozen)
         gparams = tree_map(lambda g, m: g * m, gparams, mask)
-        new_params, opt_state = tx.step(trainable_params(ts), gparams, ts.opt_state)
-        scale = densify_grad_scale(batch.camera.width, batch.camera.height,
-                                   device=g_m2d.device)
+        new_params, opt_state = tx.step(trainable_params(ts), gparams, ts.opt_state,
+                                        staged=staged)
+        # kept per device: a captured step cannot copy it from the host
+        w, h = batch.camera.width, batch.camera.height
+        scale = device_constant(f"densify_grad_scale_{w}x{h}", densify_grad_scale(w, h),
+                                g_m2d.device)
         gauss = ts.gauss._replace(params=new_params.gaussians)
         gauss = G.add_densification_stats(gauss, g_m2d * scale[None, :], radii)
         return TrainState(gauss=gauss, pose_refiner=new_params.pose_refiner,
                           lbs_offset=new_params.lbs_offset, opt_state=opt_state,
                           step=ts.step + 1), metrics
 
+    def eager(ts: TrainState, batch: TrainBatch, active_sh_degree: int):
+        return apply(ts, batch, active_sh_degree)
+
+    step = eager
+    if donate:
+        step = GraphedTrainStep(apply, tx, frozen_from=cfg.pbr_iteration,
+                                instance_capacity=raster_config.instance_capacity)
     step.loss_and_grads = loss_and_grads
+    step.eager = eager
     return step
 
 
@@ -244,14 +276,23 @@ def _reset_opacity(ts: TrainState) -> TrainState:
 def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: OptimizationConfig, *,
                extent: float, smpl_vertices: torch.Tensor, max_sh_degree: int = 3,
                seed: int = 0, num_iterations: int | None = None, start_iteration: int = 0,
-               callback: Callable | None = None, sharding=None):
+               callback: Callable | None = None, sharding=None, scan_chunk: int = 1,
+               callback_iters: tuple = ()):
     """The host schedule: a shuffled stack of the views, refilled when
     exhausted (train.py:212-215, the JAX package's order for the same
     seed), densify events every densification_interval iterations inside
     [densify_from_iter, densify_until_iter), opacity resets every
-    opacity_reset_interval. The loss is checked every 50 iterations; a
-    non-finite one snapshots the state to output/diverged/chkpnt<it> and
-    raises FloatingPointError.
+    opacity_reset_interval. The loss is checked every 50 iterations (at
+    every chunk's end when chunked); a non-finite one snapshots the state to
+    output/diverged/chkpnt<it> and raises FloatingPointError.
+
+    scan_chunk > 1 runs up to that many iterations per call of
+    `step_fn.chunk` (make_train_step(..., donate=True)) on a [V, ...] stack
+    of the views: a chunk never crosses a densify / reset / SH-ramp
+    boundary or an iteration in `callback_iters`, so the schedule and the
+    view order are those of scan_chunk=1; only the callback cadence changes
+    (once per chunk, with that chunk's last metrics). A step_fn without
+    `.chunk` runs one step per call.
 
     With `sharding` (parallel/mesh.py::StateSharding, a multi-rank run),
     `ts` is this rank's share of the state (a `Sharded`) in and out, as
@@ -264,24 +305,50 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
     gen = torch.Generator().manual_seed(seed)
     stack: list[int] = []
     metrics: dict = {}
+    chunked = scan_chunk > 1 and hasattr(step_fn, "chunk")
+    cb_set = {int(i) for i in callback_iters}
+    views = stack_views(batches) if chunked else None
 
-    def pick_batch():
+    def pick_index():
         nonlocal stack
         if not stack:
             stack = list(range(len(batches)))
-        return batches[stack.pop(host_rng.randint(len(stack)))]
+        return stack.pop(host_rng.randint(len(stack)))
+
+    def is_densify(it):
+        return (cfg.densify_from_iter <= it < cfg.densify_until_iter
+                and it % cfg.densification_interval == 0)
+
+    def chunk_end(it):
+        """Last iteration of the chunk from `it` (the JAX loop's rule): it
+        may end on an event, an SH-degree change or an iteration the caller
+        observes, never contain one before its end."""
+        end = min(it + scan_chunk - 1, num_iterations)
+        end = min(end, (it // 1000 + 1) * 1000 - 1)
+        for e in range(it, end + 1):
+            if is_densify(e) or e % cfg.opacity_reset_interval == 0 or e in cb_set:
+                return e
+        return end
 
     def whole(ts):
         return ts if sharding is None else sharding.gather(ts)
 
-    for it in range(start_iteration + 1, num_iterations + 1):
-        ts, metrics = step_fn(ts, pick_batch(), active_sh_degree_at(it, max_sh_degree))
-        if it % 50 == 0 and not np.isfinite(float(metrics["loss"])):
+    it = start_iteration + 1
+    while it <= num_iterations:
+        deg = active_sh_degree_at(it, max_sh_degree)
+        if chunked:
+            end = chunk_end(it)
+            idx = [pick_index() for _ in range(end - it + 1)]
+            ts, (mseq, n) = step_fn.chunk(ts, views, idx, deg, pad_to=scan_chunk)
+            metrics = {k: v[n - 1] for k, v in mseq.items()}
+            it = end
+        else:
+            ts, metrics = step_fn(ts, batches[pick_index()], deg)
+        if (chunked or it % 50 == 0) and not np.isfinite(float(metrics["loss"])):
             path = save_checkpoint("output/diverged", it, whole(ts))
             raise FloatingPointError(f"non-finite loss at iteration {it}; state snapshot at "
                                      f"{path}")
-        if (cfg.densify_from_iter <= it < cfg.densify_until_iter
-                and it % cfg.densification_interval == 0):
+        if is_densify(it):
             full = maybe_grow_capacity(whole(ts))
             full, dinfo = densify_event(full, gen, cfg, extent, smpl_vertices, it)
             ts = full if sharding is None else sharding.shard(full, full.gauss.capacity)
@@ -294,4 +361,5 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
                 ts._replace(local=_reset_opacity(ts.local))
         if callback is not None:
             callback(it, ts, metrics)
+        it += 1
     return ts, metrics

@@ -805,3 +805,128 @@ def test_graph_replays_count_the_captured_launches(graph_scene):
     torch.cuda.synchronize()
     assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == \
         {k: n * v for k, v in per_frame.items()}
+
+
+# ---- the training step from captured CUDA graphs (train/graph.py) ----------
+# make_train_step(..., donate=True) against the eager step on the same
+# inputs: the same kernels in the same order on the same inputs, so every
+# state leaf and metric bit for bit.
+
+@pytest.fixture(scope="module")
+def train_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest "
+                    "tests/test_torch_kernels.py on the GPU")
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+
+    cfg = RasterizerConfig(tile_capacity=1024, instance_capacity=4 * 1024)
+    scene = make_synthetic_scene(n_views=4, width=128, height=128, n_verts=400,
+                                 capacity=1024, raster_config=cfg, device="cuda")
+    return scene, LPIPS(device="cuda")
+
+
+def train_steps(train_scene):
+    """(initial state, eager step, graphed step) with LPIPS on."""
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.models.mlps import init_lbs_offset, init_pose_refiner
+    from mygauhuman_torch.train import trainer as TT
+
+    scene, lpips = train_scene
+    opt = OptimizationConfig()
+    gen = torch.Generator().manual_seed(0)
+    ts, tx = TT.create_train_state(opt, scene.init_state,
+                                   init_pose_refiner(gen, device="cuda"),
+                                   init_lbs_offset(gen, device="cuda"))
+    crop = TT.scene_lpips_crop([b.bound_mask for b in scene.batches])
+    steps = [TT.make_train_step(scene.smpl_model, tx, opt, scene.raster_config,
+                                bg=torch.zeros(3, device="cuda"), lpips_fn=lpips,
+                                lpips_crop=crop, donate=d) for d in (False, True)]
+    return ts, *steps
+
+
+def assert_same_state(a, b):
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    assert a.step == b.step and a.opt_state.count == b.opt_state.count
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        assert torch.equal(x, y), f"state leaf {i} {tuple(x.shape)}"
+
+
+def test_graphed_train_step_matches_eager_bit_for_bit(train_scene):
+    from mygauhuman_torch.train.graph import stack_views
+
+    ts0, eager, graphed = train_steps(train_scene)
+    scene = train_scene[0]
+    ts_e = ts_g = ts0
+    for i in range(5):
+        b = scene.batches[i % 4]
+        ts_e, m_e = eager(ts_e, b, 0)
+        ts_g, m_g = graphed(ts_g, b, 0)
+        for k in m_e:
+            assert torch.equal(m_e[k], m_g[k]), (i, k)
+        assert_same_state(ts_e, ts_g)
+    idx = [3, 1, 0, 2, 1]
+    ts_g, (mseq, n) = graphed.chunk(ts_g, stack_views(scene.batches), idx, 0, pad_to=8)
+    assert n == 5 and mseq["loss"].shape == (8,)
+    for t, v in enumerate(idx):
+        ts_e, m_e = eager(ts_e, scene.batches[v], 0)
+        for k in m_e:
+            assert torch.equal(m_e[k], mseq[k][t]), (t, k)
+    assert_same_state(ts_e, ts_g)
+    assert graphed.captures == 1       # one fov, capacity and SH degree
+
+
+def test_graphed_train_chunk_makes_no_host_sync(train_scene):
+    from mygauhuman_torch.train.graph import stack_views
+
+    ts, eager, graphed = train_steps(train_scene)
+    scene = train_scene[0]
+    eager(ts, scene.batches[0], 0)      # the per-device constants exist
+    views = stack_views(scene.batches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, _ = graphed.chunk(ts, views, [0, 1, 2, 3, 0], 0, pad_to=8)  # warm-up, capture
+        ts, _ = graphed.chunk(ts, views, [2, 1], 0, pad_to=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graphed.captures == 1 and ts.step == 7
+
+
+def test_graphed_train_step_recaptures_after_capacity_growth(train_scene):
+    from mygauhuman_torch.train import trainer as TT
+
+    ts, eager, graphed = train_steps(train_scene)
+    b = train_scene[0].batches[0]
+    ts, _ = graphed(ts, b, 0)
+    (old_key,) = graphed.slots
+    grown = TT.maybe_grow_capacity(ts, min_free=10 ** 6)
+    assert grown.gauss.capacity == 2 * ts.gauss.capacity
+    got, m_g = graphed(grown, b, 0)
+    assert graphed.captures == 2 and graphed.released == 1
+    (new_key,) = graphed.slots
+    assert new_key.capacity == grown.gauss.capacity and old_key.capacity == ts.gauss.capacity
+    want, m_e = eager(grown, b, 0)     # the graphed step copied `grown`, not consumed it
+    assert_same_state(want, got)
+    assert torch.equal(m_e["loss"], m_g["loss"])
+
+
+def test_graphed_train_replays_count_the_captured_launches(train_scene):
+    from mygauhuman_torch.train.graph import stack_views
+
+    ts, _, graphed = train_steps(train_scene)
+    scene = train_scene[0]
+    ts, _ = graphed(ts, scene.batches[0], 0)
+    (per_step,) = graphed.launches.values()
+    for name in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_ckpt", "blend_bwd",
+                 "blend_bwd_sums", "blend_bwd_rows"):
+        assert per_step[name] == 1, (name, per_step)
+    assert "blend_bwd_ckpt" not in per_step
+    cuda_lib.reset_launches()
+    n = 5
+    graphed.chunk(ts, stack_views(scene.batches), [i % 4 for i in range(n)], 0)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == \
+        {k: n * v for k, v in per_step.items()}

@@ -215,6 +215,7 @@ def test_package_imports_no_jax():
         "import mygauhuman_torch.data.colmap_loader, mygauhuman_torch.data.blender\n"
         "import mygauhuman_torch.utils.network_gui, mygauhuman_torch.cli.convert\n"
         "import mygauhuman_torch.cli.full_eval, mygauhuman_torch.render.graph\n"
+        "import mygauhuman_torch.train.trainer, mygauhuman_torch.train.graph\n"
         "import bench_torch\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None\n"
         "       and m.split('.')[0] in blocked]\n"
