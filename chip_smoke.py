@@ -88,9 +88,14 @@ Phases, each of which must pass (any failure exits non-zero):
   7. branch B and relighting through the entry points, under build/cli_run/:
      `cli.train` resumes phase 6's chkpnt1200 for 300 branch-B iterations
      (--iterations 1500 --pbr_iteration 1200; 4 occlusion bakes at capacity
-     32,768): wall time and ms per iteration, each bake's seconds, launches,
-     sweeps and bake_out_of_budget (0), the run's launches (kernel B's
-     backward and D1 never), relit PSNR at 1,201 and 1,500; finite losses, a
+     32,768; the CLI's default: the donated step as captured CUDA graphs in
+     chunks of 100, each bake sweep as graph replays of one cell program,
+     this slice's main path, its launch counts reset before it and read
+     after): wall time and ms per iteration, the graphs' captures, seconds
+     and launches per replay, each bake's seconds, launches, sweeps and
+     bake_out_of_budget (0), the run's launches (kernel B's backward and D1
+     never; one differentiated forward and backward per iteration and per
+     capture's warm-up), relit PSNR at 1,201 and 1,500; finite losses, a
      light >= 0, geometry and MLPs bit-equal to chkpnt1200, albedo and
      roughness learned, chkpnt1500 loaded back bit-equal; kernel C tile-major
      on a bake face against its plain version; a branch-B step at chkpnt1200:
@@ -100,7 +105,18 @@ Phases, each of which must pass (any failure exits non-zero):
      (relight_oracle PSNR, psnr_drift), CUDA-event ms per relit frame beside
      the unlit one, GPU vs CPU shading within 1e-5; the first camera's bake
      redone on the CPU in a process of its own while the card trains, its
-     uint8 maps within one step of the card's;
+     uint8 maps within one step of the card's; from chkpnt1200, 40
+     iterations of train_loop_pbr with the eager step against the graphed
+     one (chunks of 16 and one ending at an observed iteration) and against
+     a starved occlusion budget (one camera's slot, so a chunk per camera
+     change), every state leaf (materials, light, volumes, both optimisers'
+     moments) and every iteration's metrics bit for bit, every chunk past
+     the capture under torch.cuda.set_sync_debug_mode("error"), the bakes
+     reused from the CLI run; ms/iteration of 40 replays in one chunk
+     against 10 eager steps (CUDA events, host clock), the busy share of
+     each, launches per replay; one bake sweep (128 cells) as graph
+     replays against the same cell program run eagerly, bit for bit, with
+     the seconds of each;
   8. the 55-joint SMPL-X body on a DNA-Rendering capture through the entry
      points, under build/cli_run/dna/: a capture written for the port's DNA
      reader (6 Camera_5mp cameras x 4 frames at the rig's 2448x2048, ground
@@ -159,16 +175,15 @@ Phases, each of which must pass (any failure exits non-zero):
      state gathers (calls, bytes) over the run: none inside a step and
      none in an iteration without a densify event, eval or save;
  10. each kernel's time lost on the main paths from its device time, the
-     script's own seconds (`[total]`), a `kernels` JSON line (kernels A, B
-     and C planar: `launches` from phase 3's graphed requests, every number
-     from phase 2's checks on the serving frame's inputs; C tile-major:
-     `launches` from phase 8's graphed cli.render replay at 1224x1024; B's
-     backward and D: rank 0's launches in the 2-rank cli.train --multichip
-     run; C tile-major, B's backward and D: every number measured on rank
-     1's inputs of the sharded step, C tile-major on the 1224x1024 strip;
-     `launches_path` and `measured_on` name them; the other paths'
-     launches in `launches_by_path`, phase 5's graphed loop as
-     `loop_graph`),
+     script's own seconds (`[total]`), a `kernels` JSON line (kernels A, B,
+     C planar and tile-major, D1s and D2: `launches` from phase 7's graphed
+     cli.train branch-B run, every number from phase 7's checks on a
+     branch-B step at chkpnt1200, C tile-major at a bake face; B's backward
+     and D1, which branch B never launches: rank 0's launches in the 2-rank
+     cli.train --multichip run, every number measured on rank 1's inputs of
+     the sharded step; `launches_path` and `measured_on` name them; the
+     other paths' launches in `launches_by_path`, phase 5's graphed loop as
+     `loop_graph`, phase 7's graphed loop check as `pbr_graph`),
      the card line, and as the last line {"ok": true, "device": {...}}.
 It needs one card and imports nothing of JAX or the JAX package.
 """
@@ -227,6 +242,12 @@ PBR_ITERS = 300            # branch B from chkpnt1200: --iterations 1500 --pbr_i
 SHADE_ATOL = 1e-5          # GPU vs CPU shading of the same G-buffers
 BAKE_U8_STEP = 1           # GPU vs CPU bake of one camera: uint8 maps differ by at most 1
 RELIGHT_FRAMES = 32        # CUDA-event frames per relit / unlit timing
+PBR_GRAPH_ITERS = 40       # eager vs graphed branch-B loop from chkpnt1200 (phase 7)
+PBR_GRAPH_CHUNK = 16       # its chunks: 16, 9 (the observed iteration ends one), 15
+PBR_GRAPH_OBSERVED = (CLI_ITERS + 25,)
+PBR_STARVED_MB = 17.0      # one camera's 32,768 x 16 x 32 uint8 maps (16.8 MB): k_max = 1
+PBR_TIMED_ITERS = 40       # graphed branch-B replays timed in one chunk
+PBR_EAGER_ITERS = 10       # eager branch-B steps timed beside them
 CPU_BAKE_THREADS = 6       # the CPU bake's process, beside the card's own host thread
 DNA_DIR = CLI_DIR / "dna"
 # the DNA-Rendering capture: the 5 MP rig's frame size (the reader halves it
@@ -1682,6 +1703,198 @@ def relight_checks(out_b, scene, dev, it):
     return ms
 
 
+def bake_key(args) -> str:
+    """A bake's inputs by content (means and alive), for `pbr_graph_phase`'s
+    reuse of the CLI run's bakes."""
+    import hashlib
+
+    return hashlib.sha1(args[0].cpu().numpy().tobytes()
+                        + args[4].cpu().numpy().tobytes()).hexdigest()
+
+
+def pbr_graph_phase(scene, train, dev, memo):
+    """Branch B graphed against eager from chkpnt1200: PBR_GRAPH_ITERS
+    iterations of train_loop_pbr with the eager step (scan_chunk 1), with the
+    graphed step (chunks of PBR_GRAPH_CHUNK, one ending at the observed
+    iteration) and with a starved occlusion budget (one camera's slot:
+    chunks split at every camera change), every state leaf and every
+    iteration's metrics bit for bit; every chunk past the first (the
+    capture) under torch.cuda.set_sync_debug_mode("error"); the bakes are
+    the CLI run's (`memo`, by content). Then the steady state: ms/iteration
+    of graphed replays in one chunk against eager steps (CUDA events and the
+    host clock), the device busy share of each, launches per replay and the
+    captures. Returns the graphed path's launches."""
+    import torch
+
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.occlusion import baking
+    from mygauhuman_torch.ops import cuda_lib
+    from mygauhuman_torch.pbr.light import prefilter_weight_set
+    from mygauhuman_torch.train import pbr as tpbr
+    from mygauhuman_torch.train.checkpoint import restore_checkpoint_like
+    from mygauhuman_torch.train.graph import stack_views
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    opt = OptimizationConfig()
+    start = restore_checkpoint_like(str(CLI_DIR / "train"), CLI_ITERS, train["ts"])
+    bg = torch.zeros(3, device=dev)
+    misses = []
+
+    def memo_bake(orig):
+        def run(*args, **kw):
+            hit = memo.get(bake_key(args))
+            if hit is None:
+                misses.append(1)
+                return orig(*args, **kw)
+            return hit
+        return run
+
+    def make(donate):
+        _, ltx = tpbr.create_pbr_state(opt, device=dev)
+        return tpbr.make_pbr_train_step(scene.smpl_model, train["tx"], ltx, opt,
+                                        scene.raster_config, bg=bg, lpips_fn=train["lpips"],
+                                        donate=donate)
+
+    def run(donate, scan_chunk, budget_mb):
+        step, seen, chunks = make(donate), {}, []
+        if donate:
+            chunk = step.chunk
+
+            def checked_chunk(*a, **kw):
+                chunks.append(len(a[6]))
+                if len(chunks) == 1:
+                    return chunk(*a, **kw)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return chunk(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            step.chunk = checked_chunk
+        pbr0, _ = tpbr.create_pbr_state(opt, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(baking, "bake_occlusion_full", memo_bake):
+            ts, pbr, _ = tpbr.train_loop_pbr(
+                start, pbr0, step, scene.batches, scene.smpl_model, opt,
+                start_iteration=CLI_ITERS, num_iterations=PBR_GRAPH_ITERS, seed=0,
+                scan_chunk=scan_chunk, callback_iters=PBR_GRAPH_OBSERVED,
+                occ_budget_mb=budget_mb, callback=lambda it, ts, p, m: seen.__setitem__(it, m))
+        torch.cuda.synchronize()
+        return dict(step=step, ts=ts, pbr=pbr, seen=seen, chunks=chunks,
+                    wall=time.perf_counter() - t0)
+
+    eager = run(False, 1, 1024.0)
+    cuda_lib.reset_launches()
+    graphed = run(True, PBR_GRAPH_CHUNK, 1024.0)
+    launches = dict(cuda_lib.LAUNCHES)
+    starved = run(True, PBR_GRAPH_CHUNK, PBR_STARVED_MB)
+    leaves = tree_leaves((eager["ts"], eager["pbr"]))
+    for name, r in (("graphed", graphed), ("starved", starved)):
+        got = tree_leaves((r["ts"], r["pbr"]))
+        same = len(got) == len(leaves) and all(torch.equal(a, b) for a, b in zip(got, leaves))
+        metrics = sorted(r["seen"]) == sorted(eager["seen"]) and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(r["seen"][it][k]))
+            for it, m in eager["seen"].items() for k, v in m.items())
+        counts = (r["ts"].step, r["ts"].opt_state.count, r["pbr"].opt_state.count) == (
+            eager["ts"].step, eager["ts"].opt_state.count, eager["pbr"].opt_state.count)
+        print(f"[pbr-graph] {name} (chunks {r['chunks']}) vs eager over iterations "
+              f"{CLI_ITERS + 1}-{CLI_ITERS + PBR_GRAPH_ITERS}: {len(leaves)} state leaves "
+              f"(materials, light, volumes, both optimisers' moments) bit-equal {same}, "
+              f"{len(eager['seen'])} iterations x {len(eager['seen'][CLI_ITERS + 1])} metrics "
+              f"bit-equal {metrics}, host counts equal {counts}; loop wall {r['wall']:.3f} s "
+              f"against eager {eager['wall']:.3f} s", flush=True)
+        require(same and metrics and counts, f"the {name} branch-B loop differs from the eager")
+    require(len(graphed["chunks"]) >= 3 and max(starved["chunks"]) < PBR_GRAPH_CHUNK
+            and len(starved["chunks"]) > len(graphed["chunks"]),
+            f"chunks {graphed['chunks']} / {starved['chunks']}: no boundary or no split")
+    require(not misses, f"{len(misses)} bakes of the check were not the CLI run's")
+    rec = graphed["step"].record()
+    per_replay = [k["launches"] for k in rec["launches_per_replay"]]
+    print(f"[pbr-graph] captures {rec['captures']} ({rec['capture_s']:.3f} s), launches per "
+          f"replay {per_replay}; the graphed loop's launches {launches}", flush=True)
+    require(rec["captures"] == 1 and all(p.get("deform_bwd", 0) == 0 for p in per_replay),
+            f"graph record {rec}")
+
+    # the steady state, from the graphed loop's end
+    step, ts, pbr = graphed["step"], graphed["ts"], graphed["pbr"]
+    views = stack_views(scene.batches)
+    # each camera's map from the CLI run's bakes
+    occ_buf = torch.stack([torch.round(memo[bake_key(
+        (*tpbr._pose_for_bake(start, b, scene.smpl_model), start.gauss.alive))][0] * 255.0
+    ).to(torch.uint8) for b in scene.batches])
+    knn3, pw = tpbr.compute_knn3(start.gauss), prefilter_weight_set(32, dev)
+    deg = min(CLI_ITERS // 1000, 3)
+    n_views = len(scene.batches)
+    idx = [i % n_views for i in range(PBR_TIMED_ITERS)]
+    eager_step = step.eager
+    cols = [tpbr.baked_occlusion_color(occ_buf[v], pbr.light) for v in range(n_views)]
+    state = [ts, pbr]
+
+    def graphed_chunk(n=PBR_TIMED_ITERS):
+        state[0], state[1], _ = step.chunk(state[0], state[1], views, occ_buf, knn3, pw,
+                                           idx[:n], idx[:n], deg, pad_to=n)
+
+    def eager_steps():
+        for i in range(PBR_EAGER_ITERS):
+            eager_step(ts, pbr, scene.batches[i % n_views], knn3, cols[i % n_views], pw, deg)
+
+    ms = {}
+    for name, fn, n in (("graphed", graphed_chunk, PBR_TIMED_ITERS),
+                        ("eager", eager_steps, PBR_EAGER_ITERS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = cuda_ms(fn, reps=1, warmup=0)
+        host = (time.perf_counter() - t0) * 1e3
+        ms[name] = (ev / n, host / n)
+    print(f"[pbr-graph] steady state at chkpnt{CLI_ITERS} (capacity {start.gauss.capacity}, "
+          f"512^2, LPIPS on): graphed {ms['graphed'][0]:.3f} ms/iteration by CUDA events "
+          f"({ms['graphed'][1]:.3f} host clock, {PBR_TIMED_ITERS} replays in one chunk), eager "
+          f"{ms['eager'][0]:.3f} ({ms['eager'][1]:.3f}, {PBR_EAGER_ITERS} steps)", flush=True)
+    profile_calls(lambda: graphed_chunk(4), 2, "graphed branch-B chunk of 4 iterations")
+    profile_calls(lambda: eager_step(ts, pbr, scene.batches[0], knn3, cols[0], pw, deg), 4,
+                  "eager branch-B step")
+    return launches, ms
+
+
+def bake_graph_check(args, dev):
+    """One sweep of the first camera's bake (the first window of 128 cells)
+    as graph replays against the same cell program run slot by slot: the
+    maps bit for bit (else the uint8 texels that differ, at most one step),
+    n_uncovered equal, and the seconds of each (host clock, synchronised)."""
+    import torch
+
+    from mygauhuman_torch.occlusion import baking
+    from mygauhuman_torch.ops import cuda_lib
+
+    means, cov6, opac, _, alive = args
+    kw = dict(height=16, width=32, grid_res=10, max_cells=128, face_res=32,
+              config=baking.DEFAULT_BAKE_CONFIG)
+    vis0 = torch.ones((means.shape[0], 16, 32, 1), device=dev)
+    out, sec = {}, {}
+    for eager in (True, False, False, True):
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            vis, n = baking._bake_sweep(means, cov6, opac, alive, vis0, 0, eager=eager, **kw)
+        torch.cuda.synchronize()
+        sec.setdefault(eager, []).append(time.perf_counter() - t0)
+        out[eager] = (vis, int(n), cuda_lib.LAUNCHES["blend_fwd_tiles"])
+    (ge, gn, g_l), (ee, en, e_l) = out[False], out[True]
+    diff = (torch.round(ge * 255.0).to(torch.int16) - torch.round(ee * 255.0).to(torch.int16))
+    n_diff, same = int((diff != 0).sum()), torch.equal(ge, ee)
+    print(f"[bake-graph] one sweep of 128 cells (capacity {means.shape[0]}): graphed "
+          f"{', '.join(f'{x:.4f}' for x in sec[False])} s ({g_l} tile-major launches, replays "
+          f"of 6 faces each), eager {', '.join(f'{x:.4f}' for x in sec[True])} s ({e_l} "
+          f"launches, the occupied cells only); maps bit-equal {same}, {n_diff} of "
+          f"{diff.numel()} uint8 texels differ (max {int(diff.abs().max())}); n_uncovered "
+          f"{gn} vs {en}", flush=True)
+    require(int(diff.abs().max()) <= BAKE_U8_STEP and gn == en,
+            "the graphed sweep differs from the eager one")
+    return sec
+
+
 def pbr_phase(dev, n_sm):
     """Branch B through the entry points: cli.train resumes phase 6's
     chkpnt1200 for 300 branch-B iterations (4 bakes at capacity 32,768),
@@ -1715,7 +1928,7 @@ def pbr_phase(dev, n_sm):
     ctx = multiprocessing.get_context("spawn")
     worker = ctx.Process(target=cpu_bake_worker,
                          args=(str(bake_in), str(bake_out), CPU_BAKE_THREADS))
-    bakes, log, face = [], [], {}
+    bakes, log, face, memo = [], [], {}, {}
 
     def timed_bake(orig):
         def run(*args, **kw):
@@ -1730,9 +1943,10 @@ def pbr_phase(dev, n_sm):
                 torch.save({k: a.detach().cpu() for k, a in zip(names, args)}, bake_in)
                 worker.start()
                 face.update(first_occ=occ, first_args=args)
-            bakes.append(dict(seconds=sec, n_sweeps=n_sweeps, oob=oob, launches={
+            bakes.append(dict(seconds=sec, n_sweeps=n_sweeps, oob=int(oob), launches={
                 k: cuda_lib.LAUNCHES[k] - before[k] for k in before if cuda_lib.LAUNCHES[k]
                 - before[k]}, occupied=baking.count_occupied(args[0], args[4])))
+            memo[bake_key(args)] = (occ, oob, n_sweeps)
             return occ, oob, n_sweeps
         return run
 
@@ -1786,9 +2000,18 @@ def pbr_phase(dev, n_sm):
             require(pbr_launches[name] > 0, f"branch B: kernel {name} was not launched")
         require(pbr_launches["deform_bwd"] == 0, "branch B ran kernel B's backward")
         require(pbr_launches["blend_bwd_ckpt"] == 0, "branch B launched D1")
-        require(pbr_launches["blend_fwd_ckpt"] == pbr_launches["blend_bwd"] == PBR_ITERS,
+        # graphed by default: each capture's warm-up runs one eager step
+        graph_b = rec["graph"]
+        print(f"[pbr] cli.train branch B graphs: {graph_b['captures']} captured "
+              f"({graph_b['released']} released) in {graph_b['capture_s']:.3f} s, launches per "
+              f"replay {[k['launches'] for k in graph_b['launches_per_replay']]}; bakes "
+              f"{', '.join(f'{b['seconds']:.3f}' for b in bakes)} s per camera", flush=True)
+        require(graph_b["captures"] >= 1, "cli.train's branch B did not run graphed")
+        require(pbr_launches["blend_fwd_ckpt"] == pbr_launches["blend_bwd"]
+                == PBR_ITERS + graph_b["captures"],
                 f"{pbr_launches['blend_fwd_ckpt']} differentiated forwards and "
-                f"{pbr_launches['blend_bwd']} backward passes in {PBR_ITERS} iterations")
+                f"{pbr_launches['blend_bwd']} backward passes in {PBR_ITERS} iterations and "
+                f"{graph_b['captures']} warm-ups")
 
         # the run against its start: geometry bit-equal, materials and light learned
         ts, pbr_state = res["state"], res["pbr_state"]
@@ -1863,6 +2086,10 @@ def pbr_phase(dev, n_sm):
              prefilter_weight_set(32, dev), min(CLI_ITERS // 1000, 3)), step, dev, n_sm, pb, pbb))
         pbr_gpu_vs_cpu(dev)
 
+        # the graphed loop against the eager one, and a graphed bake sweep
+        graph_launches, _ = pbr_graph_phase(scene, train, dev, memo)
+        bake_graph_check(face["first_args"], dev)
+
         # cli.render --relight with the run's light
         cuda_lib.reset_launches()
         m = cli_render.main(["--model_path", str(out_b), "--iteration", str(end)] + synth + [
@@ -1901,8 +2128,8 @@ def pbr_phase(dev, n_sm):
         if worker.is_alive():
             worker.terminate()
             worker.join()
-    return ({"cli_train_pbr": pbr_launches, "cli_render_relight": relight_launches}, report,
-            (ts, pbr_state))
+    return ({"cli_train_pbr": pbr_launches, "pbr_graph": graph_launches,
+             "cli_render_relight": relight_launches}, report, (ts, pbr_state))
 
 
 class MemGroup(dict):
@@ -3434,40 +3661,42 @@ def main() -> None:
                     f"{dna_train_launches[name]} / {mc_train_launches[name]})")
     print("[lost] ms lost on the main paths from device time, serving / loop / cli.train / "
           "branch B / SMPL-X / multichip rank 0: " + "; ".join(lost), flush=True)
-    # this slice's main path is the graphed serving frame: kernels A, B and
-    # C planar take `launches` from phase 3's graphed requests and every
-    # number from phase 2's checks on the serving frame's inputs at the
-    # bench point; kernel C tile-major takes `launches` from cli.render's
-    # graphed replay of the SMPL-X frame at 1224x1024 (phase 8). The
-    # training-only kernels (B's backward, D) keep the previous slice's
-    # main path, cli.train --multichip's 600 iterations on 2 ranks: rank 0's
-    # counts, each number measured on rank 1's inputs of the sharded step,
-    # as is kernel C tile-major's (on a 1224x1024 frame's strip).
-    # `launches_path` names the path of `launches`, `measured_on` that of
-    # the numbers; every path's counts are in `launches_by_path`, the
-    # graphed training paths among them (phase 5's `loop_graph`, phase 6's
-    # `cli_train`, phase 8's `smplx_dna`)
+    # this slice's main path is branch B through cli.train, graphed (phase
+    # 7): kernels A, B, C (planar in checkpoint mode, and tile-major at the
+    # bake faces) and D (D1s + D2) take `launches` from its 300 iterations
+    # and 4 bakes, and every number from phase 7's checks on the inputs of a
+    # branch-B step at chkpnt1200 (C tile-major: a bake face of the first
+    # camera). Kernel B's backward, which branch B never launches, and D1
+    # keep an earlier slice's main path, cli.train --multichip's 600
+    # iterations on 2 ranks: rank 0's counts, each number measured on rank
+    # 1's inputs of the sharded step. `launches_path` names the path of
+    # `launches`, `measured_on` that of the numbers; every path's counts are
+    # in `launches_by_path` (phase 3's graphed serving frame as
+    # `serving_graph`, phase 5's graphed loop as `loop_graph`, phase 6's
+    # `cli_train`, phase 7's graphed loop check as `pbr_graph`, phase 8's
+    # `smplx_dna`)
     paths = {"serving": serving_launches, "serving_graph": graph_launches,
              "loop": loop_launches, "loop_graph": train_graph_launches,
              "cli_train": cli_train_launches, **cli_launches,
-             **pbr_launches, **dna_launches, **mc_launches}
+             "cli_train_pbr": pbr_train_launches, **pbr_launches, **dna_launches,
+             **mc_launches}
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    serving_path = {"knn": "serving_graph", "deform": "serving_graph",
-                    "blend_fwd": "serving_graph", "blend_fwd_tiles": "smplx_dna_render_replay"}
+    main_path = ("knn", "deform", "blend_fwd", "blend_fwd_tiles", "blend_bwd", "blend_bwd_sums",
+                 "blend_bwd_rows")
     kernels = []
     for n in ("knn", "deform", "deform_bwd", "blend_fwd", "blend_fwd_tiles", "blend_bwd",
               "blend_bwd_ckpt", "blend_bwd_sums", "blend_bwd_rows"):
-        path = serving_path.get(n, "multichip_r0")
-        on_serving = path == "serving_graph"
+        on_main = n in main_path
+        path = "cli_train_pbr" if on_main else "multichip_r0"
         kernels.append(dict(
-            {k: (report if on_serving else mc_report)[n][k] for k in keys},
+            {k: (pbr_report if on_main else mc_report)[n][k] for k in keys},
             launches=paths[path][n], launches_path=path,
-            measured_on=("the serving frame at the bench point (phase 2)" if on_serving
+            measured_on=(f"a branch-B step at chkpnt{CLI_ITERS} (phase 7)" if on_main
                          else "rank 1's sharded step (phase 9)"),
             launches_by_path={p: c[n] for p, c in paths.items()}))
     for k in kernels:
-        require(k["launches"] > 0 or k["name"] not in serving_path,
+        require(k["launches"] > 0 or k["name"] not in main_path,
                 f"kernel {k['name']}: no launch on {k['launches_path']}")
     print(f"[total] the script took {time.perf_counter() - t_script:.1f} s ({card})",
           flush=True)

@@ -43,18 +43,21 @@ and the returned state. Only rank 0 evaluates and writes files. Each rank
 prints its per-Gaussian state bytes against the whole state's at the start
 and at the end. On one process it runs the single-device step, as the JAX
 CLI does with one device.
-Branch A trains with the donated step, as the JAX CLI does: on the card a
-captured CUDA graph of the step replayed in chunks of `--scan_chunk`
-iterations (1 under `--gui`), each ending at every densify, reset or
-SH-ramp boundary and at every test, save and logged iteration
-(`train/graph.py`); on the CPU the same staging around the eager step.
-`--multichip` on several ranks keeps the eager sharded step (its gloo
-collectives stage through host memory, which a graph cannot capture), and
-branch B runs one eager step per call.
+Both branches train with the donated step, as the JAX CLI does: on the
+card a captured CUDA graph of the step replayed in chunks of `--scan_chunk`
+iterations (1 under `--gui`), each ending at every test, save and logged
+iteration and, in branch A, at every densify, reset or SH-ramp boundary
+(`train/graph.py`, `train/pbr.py::GraphedPbrStep`); on the CPU the same
+staging around the eager step. Branch B's chunks read each iteration's
+baked occlusion from a uint8 buffer on the device of at most
+`--occ_budget_mb` megabytes (at least one camera), and end early where
+their views would need more cameras than it holds; each bake sweep is
+graph replays too (`occlusion/baking.py`). `--multichip` on several ranks
+keeps the eager sharded steps, one per call (their gloo collectives stage
+through host memory, which a graph cannot capture).
 Accepted as no-ops: `--precompile` (there is no XLA cache to warm: the
-command returns at once without training), `--occ_budget_mb` (it sized
-the JAX chunk program's occlusion buffer in branch B, whose loop here runs
-one step per call), `--use_pallas` (the device picks the kernels).
+command returns at once without training), `--use_pallas` (the device
+picks the kernels).
 
 Deliberate difference from the JAX CLI: on `--synthetic` the test split is
 every view (there: the first), so the replay cache covers every view that
@@ -125,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted, no effect: CUDA tensors run the CUDA kernels, "
                         "CPU tensors their plain versions")
     p.add_argument("--scan_chunk", type=int, default=100,
-                   help="branch-A iterations per replayed chunk of the captured step "
+                   help="iterations per replayed chunk of the captured step, both branches "
                         "(1 under --gui); the schedule is the same with any chunk")
     p.add_argument("--multichip", action="store_true",
                    help="the tile-sharded steps over the ranks of a torch.distributed.run "
@@ -136,9 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bake one sweep of --bake_cells cells per camera; the rest "
                         "keep visibility 1, counted as bake_out_of_budget")
     p.add_argument("--occ_budget_mb", type=float, default=1024.0,
-                   help="accepted, no effect: it sizes the JAX chunk program's "
-                        "occlusion buffer in branch B, whose loop here runs one step "
-                        "per call")
+                   help="device megabytes of branch B's baked-occlusion buffer (uint8, "
+                        "one slot per camera, at least one); a chunk that would need "
+                        "more cameras ends early")
     p.add_argument("--exchange_capacity", type=int, default=16384,
                    help="multichip exchange window; read only with --multichip")
     p.add_argument("--precompile", action="store_true",
@@ -205,7 +208,8 @@ def main(argv=None) -> dict:
     and capacity at the end, the densify events' counters, the eval and save
     phases' times, the final TrainState (`state`, whole on every rank), and
     with branch B its PbrState (`pbr_state`) and `pbr` {iterations,
-    elapsed_s, bake_out_of_budget} (else None); under --multichip on
+    elapsed_s, bake_out_of_budget, graph: its `record()`, else None under
+    --multichip on several ranks} (else None); under --multichip on
     several ranks, `state_bytes`: this rank's per-Gaussian bytes against
     the whole state's at the start and the end (else None)."""
     args = build_parser().parse_args(argv)
@@ -587,8 +591,9 @@ def main(argv=None) -> dict:
                 return base_pbr(ts2, pbr2, stack_batches([batch]), knn3, occ_col[None], pw,
                                 deg)
         else:
+            # the states are donated to the captured step, as in branch A
             pbr_step = make_pbr_train_step(smpl_model, tx, light_tx, cfg, raster_cfg, bg=bg,
-                                           lpips_fn=lpips_obj)
+                                           lpips_fn=lpips_obj, donate=True)
 
         def pbr_callback(it, ts2, pbr2, m):
             nonlocal last_psnr
@@ -617,15 +622,26 @@ def main(argv=None) -> dict:
             start_iteration=pbr_start, num_iterations=cfg.iterations - pbr_start,
             max_sh_degree=args.sh_degree, seed=args.seed, callback=pbr_callback,
             bake_max_cells=args.bake_cells, bake_full_coverage=not args.bake_single_sweep,
+            scan_chunk=scan_chunk, occ_budget_mb=args.occ_budget_mb,
+            # as branch A's: the test, save and logged iterations end chunks
+            callback_iters=tuple(sorted(set(args.test_iterations) | set(args.save_iterations)
+                                        | set(range(100, cfg.iterations + 1, 100)))),
             sharding=sharding)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         pbr_record = {"iterations": cfg.iterations - pbr_start,
                       "elapsed_s": time.time() - t_pbr,
-                      "bake_out_of_budget": metrics.get("bake_out_of_budget", 0)}
+                      "bake_out_of_budget": metrics.get("bake_out_of_budget", 0),
+                      "graph": pbr_step.record() if hasattr(pbr_step, "record") else None}
         print(f"branch B: {pbr_record['iterations']} iterations in "
               f"{pbr_record['elapsed_s']:.1f}s (bake_out_of_budget "
               f"{pbr_record['bake_out_of_budget']})")
+        graph_b = pbr_record["graph"]
+        if graph_b is not None and is_main:
+            print(f"branch B graphs: {graph_b['captures']} captured ({graph_b['released']} "
+                  f"released) in {graph_b['capture_s']:.1f}s of warm-ups and captures, chunks "
+                  f"of {scan_chunk}, launches per replay "
+                  f"{[k['launches'] for k in graph_b['launches_per_replay']]}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     elapsed = time.time() - start

@@ -9,16 +9,27 @@ hemisphere (dot(envdir, normal) > 0).
 
 The cells are ranked occupied-first (a stable sort, so the windows hold the
 JAX package's cells) and baked in windows of `max_cells` / `sweep_cells`
-ranks; `bake_occlusion_full` sweeps every occupied cell. Each face is one
-`rasterize` call under no_grad with the bake's `RasterizerConfig`; on CUDA
-tensors its blend is kernel C in tile-major mode (a 32-pixel face is not a
-whole number of the planar mode's 128-pixel rows). Cells of a window that
-are not occupied are not rendered: their maps are masked out.
+ranks; `bake_occlusion_full` sweeps every occupied cell. A sweep is the
+JAX package's `_bake_sweep`: everything stays on the device (the window's
+cell ids from the ranked order, the six face cameras of each cell built
+from its center), and every slot of the window is baked by one cell
+program (`_bake_cell`: the six faces, each one `rasterize` call under
+no_grad with the bake's `RasterizerConfig`, then the nearest-texel
+lat-long lookup written into the window's maps). The scatter masks out the
+slots whose cell is not occupied. On CUDA tensors each face's blend is
+kernel C in tile-major mode (a 32-pixel face is not a whole number of the
+planar mode's 128-pixel rows), and a sweep is `max_cells` replays of one
+captured CUDA graph of the cell program, which advances a slot counter on
+the device: no host work between them. The graph is captured once per
+(device, capacity, lat-long size, max_cells, face_res, config), after one
+eager run of the program, and kept for later bakes; the grid resolution is
+not baked in (the program reads cell ids). The host syncs once per camera,
+for `bake_occlusion_full`'s occupied-cell count, and the callers read
+`out_of_budget` (a device tensor) once per bake.
 
-Deliberate difference from the JAX module: the sweep is a Python loop over
-the window's occupied cells (the JAX sweep maps over all `max_cells` cells
-inside one compiled program). One host sync per sweep reads which cells are
-occupied and their centers; the face cameras are built on the host.
+Deliberate difference from the JAX module: on CPU tensors the slots run
+eagerly, and only those whose cell is occupied (reading the flags costs a
+CPU nothing; the others' maps are masked out).
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ import numpy as np
 import torch
 
 from mygauhuman_torch.data.camera import projection_from_fov
+from mygauhuman_torch.device import device_constant
+from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops.rasterize import RasterizerConfig, rasterize
 from mygauhuman_torch.pbr.cubemap import dir_to_cube_uv, latlong_dirs
 
@@ -54,8 +67,10 @@ def pc_to_grid(points: torch.Tensor, alive: torch.Tensor, res: int = 10) -> Voxe
     r = torch.arange(res, device=points.device)
     ijk = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), dim=-1).reshape(-1, 3)
     centers = lo[None, :] + (ijk + 0.5) * cell[None, :]
+    # index_fill_, not an indexed assignment: on the card that copies its
+    # value from the host and waits
     occupied = torch.zeros(res ** 3 + 1, dtype=torch.bool, device=points.device)
-    occupied[torch.where(alive, flat, res ** 3)] = True
+    occupied.index_fill_(0, torch.where(alive, flat, res ** 3), True)
     return VoxelGrid(cell_of_point=flat, centers=centers, occupied=occupied[:res ** 3])
 
 
@@ -95,6 +110,26 @@ def face_cameras(centers: np.ndarray) -> np.ndarray:
     return out
 
 
+def face_cameras_torch(centers: torch.Tensor) -> torch.Tensor:
+    """`face_cameras` of centers [n, 3] with device ops, on their device.
+    The same numbers: each row of R^T holds one +-1, so R^T c is a signed
+    permutation of c, and each entry of proj @ w2c sums at most one rounded
+    product and one exact term."""
+    dev = centers.device
+    axes = device_constant("bake_face_axes", np.stack([
+        np.stack([a.astype(np.float32) for a in _face_camera_axes(s)], axis=1)
+        for s in range(6)]), dev)                                  # [6, 3, 3] c2w
+    proj = device_constant("bake_face_proj",
+                           projection_from_fov(0.01, 100.0, math.pi / 2, math.pi / 2), dev)
+    rt = axes.transpose(1, 2)
+    w2c = centers.new_zeros((centers.shape[0], 6, 4, 4))
+    w2c[:, :, :3, :3] = rt
+    w2c[:, :, :3, 3] = -(rt[None] * centers[:, None, None, :]).sum(-1)
+    w2c[:, :, 3, 3] = 1.0
+    full = (proj[:, :, None] * w2c[:, :, None]).sum(-2)             # sum_k P[i,k] w2c[k,j]
+    return torch.stack([w2c, full], dim=2)
+
+
 def count_occupied(points: torch.Tensor, alive: torch.Tensor, grid_res: int = 10) -> int:
     """Number of occupied voxels: the sweep count of `bake_occlusion_full`
     (the reference's per-nonempty-cell loop bound, baking.py:145)."""
@@ -107,49 +142,115 @@ def rank_cells(occupied: torch.Tensor) -> torch.Tensor:
     return torch.argsort((~occupied).to(torch.int8), stable=True)
 
 
+class _Window(NamedTuple):
+    """The cell program's inputs for one sweep."""
+
+    means3d: torch.Tensor         # [cap, 3]
+    cov3d6: torch.Tensor          # [cap, 6]
+    opacities: torch.Tensor       # [cap]
+    alive: torch.Tensor           # [cap] bool
+    cell_of_point: torch.Tensor   # [cap] int64
+    cells: torch.Tensor           # [max_cells] int64: the window's cell ids
+    cams: torch.Tensor            # [max_cells, 6, 2, 4, 4]: their face cameras
+
+
+def _latlong_lookup(height: int, width: int, face_res: int, device):
+    """(face, yi, xi) [H, W]: the nearest texel of each lat-long direction
+    (baking.py:290-298 filter "nearest")."""
+    face, gx, gy = dir_to_cube_uv(latlong_dirs(height, width, device))
+    r = face_res
+    return (face, torch.clamp(((gy + 1.0) * 0.5 * r).long(), 0, r - 1),
+            torch.clamp(((gx + 1.0) * 0.5 * r).long(), 0, r - 1))
+
+
+def _bake_cell(win: _Window, lookup, envs: torch.Tensor, slot: torch.Tensor, *,
+               face_res: int, config: RasterizerConfig) -> None:
+    """The cell program: the opacity cubemap of the cell in window slot
+    `slot` ([1] int64 on the device) of every alive Gaussian outside it,
+    as its nearest-texel lat-long map in envs[slot] ([max_cells, H, W])."""
+    cap = win.means3d.shape[0]
+    with torch.no_grad():
+        mask = win.alive & (win.cell_of_point != win.cells.index_select(0, slot))
+        cams = win.cams.index_select(0, slot)[0]
+        features = win.means3d.new_zeros((cap, 1))
+        bg = win.means3d.new_zeros((1,))
+        faces = torch.stack([
+            rasterize(win.means3d, win.cov3d6, win.opacities, features, cams[s, 0], cams[s, 1],
+                      bg, width=face_res, height=face_res, tan_fovx=1.0, tan_fovy=1.0,
+                      config=config, alive=mask).alpha
+            for s in range(6)])
+        face, yi, xi = lookup
+        envs.index_copy_(0, slot, faces[face, yi, xi][None])
+
+
+class _SweepGraph:
+    """The cell program of one key captured on the card: static copies of a
+    sweep's inputs, its maps, the slot counter the graph advances, and the
+    launches a replay makes."""
+
+    def __init__(self, win: _Window, lookup, envs: torch.Tensor, *, face_res: int,
+                 config: RasterizerConfig):
+        self.win = _Window(*(x.clone() for x in win))
+        self.lookup, self.envs = lookup, envs
+        self.counter = torch.zeros(1, dtype=torch.int64, device=envs.device)
+
+        def program():
+            _bake_cell(self.win, self.lookup, self.envs, self.counter, face_res=face_res,
+                       config=config)
+            self.counter.add_(1)
+
+        self.graph, _, self.launches = cuda_lib.capture_graph(
+            program, program, torch.cuda.Stream(envs.device), torch.cuda.graph_pool_handle())
+
+    def run(self, win: _Window) -> torch.Tensor:
+        """Every slot of the window: one replay each -> the maps."""
+        for dst, src in zip(self.win, win):
+            dst.copy_(src)
+        self.counter.zero_()
+        for _ in range(self.envs.shape[0]):
+            self.graph.replay()
+            cuda_lib.count_replay(self.launches)
+        return self.envs
+
+
+_SWEEP_GRAPHS: dict = {}   # key -> _SweepGraph, kept as jax.jit keeps its programs
+
+
 def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, height: int,
                 width: int, grid_res: int, max_cells: int, face_res: int,
-                config: RasterizerConfig):
+                config: RasterizerConfig, eager: bool = False):
     """Bake the cells ranked [offset, offset + max_cells) and merge their
     visibility maps into `vis_carry` [cap, H, W, 1] (un-masked: `_finalize`
     applies the hemisphere and alive masks once). Returns (vis, n_uncovered):
-    n_uncovered counts alive Gaussians whose cell ranks past the window end."""
+    n_uncovered (a device tensor) counts alive Gaussians whose cell ranks
+    past the window end. On CUDA tensors the window runs as graph replays,
+    unless `eager` (the same program, slot by slot, on the occupied ones)."""
     dev = means3d.device
-    cap = means3d.shape[0]
     grid = pc_to_grid(means3d, alive, grid_res)
     res3 = grid_res ** 3
     order = rank_cells(grid.occupied)
-    rank = torch.empty(res3, dtype=torch.int64, device=dev)
-    rank[order] = torch.arange(res3, device=dev)
+    rank = torch.empty(res3, dtype=torch.int64, device=dev).scatter_(
+        0, order, torch.arange(res3, device=dev))
     off = max(min(int(offset), res3 - max_cells), 0)
     cells = order[off:off + max_cells]
     cell_live = grid.occupied[cells]
-
-    # the window slots to render, their cell ids and centers: one host sync
-    live = torch.nonzero(cell_live).reshape(-1)
-    live_cells = cells[live]
-    host = torch.cat([live[:, None].double(), live_cells[:, None].double(),
-                      grid.centers[live_cells].double()], dim=1).cpu().numpy()
-    cams = torch.as_tensor(face_cameras(host[:, 2:].astype(np.float32)), device=dev)
-
-    # nearest-neighbor latlong lookup (baking.py:290-298 filter "nearest")
-    face, gx, gy = dir_to_cube_uv(latlong_dirs(height, width, dev))
-    r = face_res
-    xi = torch.clamp(((gx + 1.0) * 0.5 * r).long(), 0, r - 1)
-    yi = torch.clamp(((gy + 1.0) * 0.5 * r).long(), 0, r - 1)
-
-    features = torch.zeros((cap, 1), dtype=torch.float32, device=dev)
-    bg = torch.zeros((1,), dtype=torch.float32, device=dev)
-    opacity_envs = torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev)
-    with torch.no_grad():
-        for k, (slot, cell_id) in enumerate(host[:, :2].astype(np.int64).tolist()):
-            mask = alive & (grid.cell_of_point != cell_id)
-            faces = torch.stack([
-                rasterize(means3d, cov3d6, opacities, features, cams[k, s, 0], cams[k, s, 1],
-                          bg, width=r, height=r, tan_fovx=1.0, tan_fovy=1.0, config=config,
-                          alive=mask).alpha
-                for s in range(6)])
-            opacity_envs[slot] = faces[face, yi, xi]
+    win = _Window(means3d, cov3d6, opacities, alive, grid.cell_of_point, cells,
+                  face_cameras_torch(grid.centers[cells]))
+    if means3d.is_cuda and not eager:
+        key = (dev, means3d.shape[0], height, width, max_cells, face_res, config)
+        if key not in _SWEEP_GRAPHS:
+            _SWEEP_GRAPHS[key] = _SweepGraph(
+                win, _latlong_lookup(height, width, face_res, dev),
+                torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev),
+                face_res=face_res, config=config)
+        opacity_envs = _SWEEP_GRAPHS[key].run(win)
+    else:
+        lookup = _latlong_lookup(height, width, face_res, dev)
+        opacity_envs = torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev)
+        for k in torch.nonzero(cell_live).reshape(-1).tolist():
+            _bake_cell(win, lookup, opacity_envs,
+                       torch.full((1,), k, dtype=torch.int64, device=dev), face_res=face_res,
+                       config=config)
 
     # every gaussian in a window cell inherits its cell's map
     g_rank = rank[grid.cell_of_point]
@@ -159,8 +260,7 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
                       vis_carry)
     # alive Gaussians always map to occupied (low-ranked) cells, so anything
     # ranking past the window end is still uncovered
-    n_uncovered = int((alive & (g_rank >= off + max_cells)).sum())
-    return vis, n_uncovered
+    return vis, (alive & (g_rank >= off + max_cells)).sum()
 
 
 def _finalize(vis, world_normals, alive, height: int, width: int):
@@ -181,9 +281,9 @@ def bake_occlusion(means3d, cov3d6, opacities, world_normals, alive, *, height: 
     """Single-sweep bake: per-Gaussian [cap, H, W, 1] visibility (1 - occluder
     opacity), masked by the normal hemisphere, and `out_of_budget`: alive
     Gaussians whose voxel fell beyond the max_cells budget and kept full
-    visibility 1.0 (counted, never silent). `bake_occlusion_full` covers
-    every cell. Runs without grad (the reference bakes under no_grad,
-    baking.py:230)."""
+    visibility 1.0 (counted, never silent; a 0-d device tensor).
+    `bake_occlusion_full` covers every cell. Runs without grad (the
+    reference bakes under no_grad, baking.py:230)."""
     max_cells = min(max_cells, grid_res ** 3)
     cap = means3d.shape[0]
     vis0 = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
@@ -200,13 +300,13 @@ def bake_occlusion_full(means3d, cov3d6, opacities, world_normals, alive, *, hei
     """Full-coverage bake (reference parity: every occupied voxel gets an
     opacity cubemap, baking.py:145-202): sweeps the ranked cell order in
     `sweep_cells`-sized windows until every occupied cell is baked. Returns
-    (vis, out_of_budget, n_sweeps); out_of_budget is 0 by construction."""
+    (vis, out_of_budget, n_sweeps); out_of_budget (a 0-d device tensor) is 0
+    by construction."""
     sweep_cells = min(sweep_cells, grid_res ** 3)
     cap = means3d.shape[0]
     with torch.no_grad():
         n_occ = count_occupied(means3d, alive, grid_res)
         vis = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
-        oob = 0
         n_sweeps = max(1, -(-n_occ // sweep_cells))
         for s in range(n_sweeps):
             vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis, s * sweep_cells,

@@ -89,6 +89,45 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def capture_graph(warmup, program, stream, pool):
+    """Run warmup() on the side `stream` (it builds the libraries and sizes
+    the library workspaces, as PyTorch's notes on CUDA graphs prescribe),
+    then capture program() there into a `torch.cuda.CUDAGraph` in `pool`
+    -> (graph, program()'s output, the launches the capture recorded). The
+    capture runs nothing, so its launches are taken back out of LAUNCHES;
+    `count_replay` adds them per replay. A failed capture raises."""
+    import contextlib
+
+    import torch
+
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        warmup()
+    before = dict(LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            out = program()
+        except BaseException:
+            with contextlib.suppress(Exception):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+    current.wait_stream(stream)
+    launches = {n: LAUNCHES[n] - c for n, c in before.items() if LAUNCHES[n] != c}
+    for name, n in launches.items():
+        LAUNCHES[name] -= n
+    return graph, out, launches
+
+
+def count_replay(launches: dict) -> None:
+    """Count a replay's launches: those its capture recorded."""
+    for name, n in launches.items():
+        LAUNCHES[name] += n
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

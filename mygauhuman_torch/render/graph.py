@@ -40,7 +40,6 @@ none.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Any, NamedTuple
 
 import torch
@@ -150,8 +149,7 @@ class GraphedRenderer:
         if slot.graph is None:
             self._capture(slot, key)
         slot.graph.replay()
-        for name, n in slot.launches.items():
-            cuda_lib.LAUNCHES[name] += n
+        cuda_lib.count_replay(slot.launches)
         return slot.out
 
     @staticmethod
@@ -186,25 +184,9 @@ class GraphedRenderer:
 
     def _capture(self, slot: _Slot, key: GraphKey) -> None:
         """Warm up on the side stream, then capture one frame on it."""
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.no_grad(), torch.cuda.stream(self.stream):
-            self._frame(slot.inputs, key)
-        before = dict(cuda_lib.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                out = self._frame(slot.inputs, key)
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        current.wait_stream(self.stream)
-        # the capture recorded these launches and ran none of them
-        slot.launches = {n: cuda_lib.LAUNCHES[n] - c for n, c in before.items()
-                         if cuda_lib.LAUNCHES[n] != c}
-        for name, n in slot.launches.items():
-            cuda_lib.LAUNCHES[name] -= n
-        slot.graph, slot.out = graph, out
+        def frame():
+            with torch.no_grad():
+                return self._frame(slot.inputs, key)
+
+        slot.graph, slot.out, slot.launches = cuda_lib.capture_graph(frame, frame, self.stream,
+                                                                     self.pool)

@@ -43,6 +43,11 @@ raises; there is no eager fallback on the card. On CPU tensors the same
 staging runs and the step runs eagerly, its result copied into the state's
 tensors as a replay's is.
 
+Branch B's step (train/pbr.py::GraphedPbrStep) is this class with another
+state: the graphs own (TrainState, PbrState, knn3, prefilter weights), and
+the hooks `_staged_rows`, `_train_state` and `_advanced` give its staged
+rows (both optimisers'), its TrainState and its host values after k steps.
+
 `cuda_lib.LAUNCHES` counts the wrappers' Python calls, which a replay does
 not make: the launches a capture recorded are kept per key (`launches`)
 and added on every replay; the capture itself (which runs nothing) adds
@@ -50,7 +55,6 @@ none, and the warm-up step (which runs) adds its own.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Callable, NamedTuple
@@ -58,7 +62,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from mygauhuman_torch.ops import cuda_lib
-from mygauhuman_torch.train.optim import GROUPS, STAGED, tree_leaves, tree_map
+from mygauhuman_torch.train.optim import tree_leaves, tree_map
 
 
 class StepKey(NamedTuple):
@@ -90,14 +94,37 @@ def _with_camera(batch, camera):
         width=camera.width, height=camera.height))
 
 
+def _empty_as(x: torch.Tensor, rows: int | None = None, device=None) -> torch.Tensor:
+    """An uninitialised tensor with x's shape, dtype and strides (those of a
+    contiguous one where x overlaps itself), or `rows` of them stacked on a
+    new first dimension, each with x's strides. On the card the kernels a
+    step launches on an input, and so its bits, can depend on its strides
+    (a planar image, a column slice), so staged copies keep them."""
+    stride = x.stride() if all(st > 0 for st, n in zip(x.stride(), x.shape) if n > 1) \
+        else x.contiguous().stride()
+    device = x.device if device is None else device
+    if rows is None:
+        return torch.empty_strided(x.shape, stride, dtype=x.dtype, device=device)
+    span = 1 + sum((n - 1) * st for n, st in zip(x.shape, stride))
+    return torch.empty_strided((rows, *x.shape), (span, *stride), dtype=x.dtype, device=device)
+
+
+def _stack(xs) -> torch.Tensor:
+    out = _empty_as(xs[0], len(xs))
+    for row, x in zip(out, xs):
+        row.copy_(x)
+    return out
+
+
 def stack_views(batches: list) -> ViewStack:
     """One [V, ...] device stack of the training views (the JAX loop's
-    `views`), each view's camera host values kept beside it. Raises
-    ValueError if the views' tensors differ in shape."""
+    `views`), each view's camera host values kept beside it, each row with
+    its view's strides (`_empty_as`). Raises ValueError if the views' tensors
+    differ in shape."""
     first = batches[0].camera
     try:
-        stacked = tree_map(lambda *xs: torch.stack(xs), *[_with_camera(b, first)
-                                                         for b in batches])
+        stacked = tree_map(lambda *xs: _stack(xs), *[_with_camera(b, first)
+                                                     for b in batches])
     except (RuntimeError, ValueError) as e:
         raise ValueError("the views do not stack into one [V, ...] tensor per leaf (other "
                          "shapes or host values); train them with scan_chunk=1") from e
@@ -210,13 +237,15 @@ class GraphedTrainStep:
         self._adopt(ts)
         k = len(items)
         dev = self.device
-        rows = torch.from_numpy(self.tx.staged_rows(ts.opt_state.count, k))
+        rows = torch.from_numpy(self._staged_rows(ts, k))
         if self.graphed:
             # one copy per run; the pinned block is not reused before it lands
             rows = rows.pin_memory().to(dev, non_blocking=True)
+        step = self._train_state(ts).step
         bufs: dict = {}
         for t, (batch, leaves) in enumerate(items):
-            slot, key = self._slot(batch, leaves, deg, ts.step + t >= self.frozen_from)
+            slot, key = self._slot(batch, leaves, deg, step + t >= self.frozen_from,
+                                   tuple(rows.shape[1:]))
             for dst, src in zip(slot.leaves, leaves):
                 dst.copy_(src)
             slot.adam_row.copy_(rows[t])
@@ -226,8 +255,7 @@ class GraphedTrainStep:
                 if slot.graph is None:
                     self._capture(slot, key)
                 slot.graph.replay()
-                for name, n in slot.launches.items():
-                    cuda_lib.LAUNCHES[name] += n
+                cuda_lib.count_replay(slot.launches)
                 out = slot.out
             for dtype, (names, vec) in out.items():
                 if dtype not in bufs:
@@ -235,21 +263,38 @@ class GraphedTrainStep:
                                                       device=dev))
                 bufs[dtype][1][t].copy_(vec)
         mseq = {name: buf[:, j] for names, buf in bufs.values() for j, name in enumerate(names)}
-        count = {g: c + k for g, c in ts.opt_state.count.items()}
-        self.state = self.state._replace(
-            step=ts.step + k, opt_state=self.state.opt_state._replace(count=count))
+        self.state = self._advanced(self.state, k)
         return self.state, (mseq, k)
 
-    def _slot(self, batch, leaves: list, deg: int, frozen: bool) -> tuple[_Slot, StepKey]:
+    # ---- what a subclass with another state changes --------------------------
+
+    def _staged_rows(self, state, k: int):
+        """[k, rows, len(STAGED)] float32: the staged rows of k steps."""
+        return self.tx.staged_rows(state.opt_state.count, k)
+
+    @staticmethod
+    def _train_state(state):
+        """The TrainState of the adopted state."""
+        return state
+
+    def _advanced(self, state, k: int):
+        """The state's host values after k steps (tensors unchanged)."""
+        count = {g: c + k for g, c in state.opt_state.count.items()}
+        return state._replace(step=state.step + k,
+                              opt_state=state.opt_state._replace(count=count))
+
+    def _slot(self, batch, leaves: list, deg: int, frozen: bool, row_shape: tuple
+              ) -> tuple[_Slot, StepKey]:
         cam = batch.camera
         key = StepKey(int(cam.width), int(cam.height), float(cam.tan_fovx),
-                      float(cam.tan_fovy), self.state.gauss.capacity, self.instance_capacity,
-                      int(deg), bool(frozen), tuple(tuple(x.shape) for x in leaves))
+                      float(cam.tan_fovy), self._train_state(self.state).gauss.capacity,
+                      self.instance_capacity, int(deg), bool(frozen),
+                      tuple(tuple(x.shape) for x in leaves))
         slot = self.slots.get(key)
         if slot is None:
-            static = tree_map(lambda x: torch.empty_like(x, device=self.device), batch)
-            slot = self.slots[key] = _Slot(static, torch.empty(
-                (len(GROUPS), len(STAGED)), dtype=torch.float32, device=self.device))
+            static = tree_map(lambda x: _empty_as(x, device=self.device), batch)
+            slot = self.slots[key] = _Slot(static, torch.empty(row_shape, dtype=torch.float32,
+                                                               device=self.device))
         return slot, key
 
     def _program(self, slot: _Slot, key: StepKey, write: bool) -> dict:
@@ -277,27 +322,8 @@ class GraphedTrainStep:
             self.pool = torch.cuda.graph_pool_handle()
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            self._program(slot, key, write=False)
-        before = dict(cuda_lib.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                out = self._program(slot, key, write=True)
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-        current.wait_stream(self.stream)
-        # the capture recorded these launches and ran none of them
-        slot.launches = {n: cuda_lib.LAUNCHES[n] - c for n, c in before.items()
-                         if cuda_lib.LAUNCHES[n] != c}
-        for name, n in slot.launches.items():
-            cuda_lib.LAUNCHES[name] -= n
-        slot.graph, slot.out = graph, out
+        slot.graph, slot.out, slot.launches = cuda_lib.capture_graph(
+            lambda: self._program(slot, key, write=False),
+            lambda: self._program(slot, key, write=True), self.stream, self.pool)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -24,8 +24,20 @@ its backward. The scene optimizer updates the material groups only:
     their phase-A momentum keeps moving the geometry after pbr_iteration
     (ROADMAP Queue 3).
 
-Deliberate differences from the JAX module: a per-step function (no chunk
-program, as `train_loop` runs one step per call), the light's Adam is a
+`make_pbr_train_step(..., donate=True)` is the JAX package's jitted step
+and its chunk program: a `GraphedPbrStep`, which serves the step from
+captured CUDA graphs as `train/graph.py::GraphedTrainStep` serves branch
+A's (the state donated, the view and both optimisers' scalars staged per
+replay). One graph holds the whole iteration: from the camera's uint8
+baked occlusion, the envmap export and `occlusion_color` under the current
+light, then the render, the losses, `autograd.grad`, both Adams and the
+light's clamp. `step.chunk` replays it once per iteration of a chunk, the
+views copied in from a `[V, ...]` stack and each iteration's occlusion from
+a slot of a bounded `[K, cap, H, W, 1]` uint8 buffer, with no host sync in
+between. `train_loop_pbr(scan_chunk=K)` sizes and fills that buffer as the
+JAX loop does (`occ_budget_mb`).
+
+Deliberate differences from the JAX module: the light's Adam is a
 functional Adam as `train/optim.py`'s, and every gather whose gradient is
 summed (the samplers, the KNN material smoothness) goes through
 `pbr/cubemap.py::gather_rows`, whose backward sums in a fixed order.
@@ -56,7 +68,17 @@ from mygauhuman_torch.pbr.light import (
 from mygauhuman_torch.pbr.shade import get_brdf_lut, pbr_shading_planar
 from mygauhuman_torch.render import render_frame
 from mygauhuman_torch.train import losses as L
-from mygauhuman_torch.train.optim import Adam, TrainableParams, adam_leaf, tree_map
+from mygauhuman_torch.train.graph import GraphedTrainStep, stack_views
+from mygauhuman_torch.train.optim import (
+    GROUPS,
+    Adam,
+    TrainableParams,
+    adam_leaf,
+    adam_leaf_staged,
+    staged_row,
+    tree_leaves,
+    tree_map,
+)
 from mygauhuman_torch.train.trainer import TrainBatch, TrainState, trainable_params
 from mygauhuman_torch.utils.transforms import rot_apply
 
@@ -81,10 +103,24 @@ class LightAdam(NamedTuple):
         return LightAdamState(count=0, mu=tree_map(torch.zeros_like, params),
                               nu=tree_map(torch.zeros_like, params))
 
-    def step(self, params: dict, grads: dict, state: LightAdamState):
+    def staged_rows(self, count: int, k: int) -> np.ndarray:
+        """[k, len(STAGED)] float32: the staged rows (train/optim.py::
+        staged_row) of k successive updates from `count` completed ones."""
+        return np.stack([staged_row(self.lr, count + t + 1) for t in range(k)])
+
+    def step(self, params: dict, grads: dict, state: LightAdamState,
+             staged: torch.Tensor | None = None):
+        """One update; with `staged` (a [len(STAGED)] row on the parameters'
+        device) its scalars are read from it, bit for bit those of the
+        host count (`adam_leaf_staged`)."""
         count = state.count + 1
-        out = tree_map(lambda p, g, m, v: adam_leaf(p, g, m, v, self.lr, count, LIGHT_ADAM_EPS),
-                       params, grads, state.mu, state.nu)
+        if staged is None:
+            def leaf(p, g, m, v):
+                return adam_leaf(p, g, m, v, self.lr, count, LIGHT_ADAM_EPS)
+        else:
+            def leaf(p, g, m, v):
+                return adam_leaf_staged(p, g, m, v, staged, LIGHT_ADAM_EPS)
+        out = tree_map(leaf, params, grads, state.mu, state.nu)
         return _select(out, 0), LightAdamState(count=count, mu=_select(out, 1),
                                                nu=_select(out, 2))
 
@@ -100,6 +136,19 @@ class PbrState(NamedTuple):
     light: dict                    # {"base": [6, R, R, 3]}
     volumes: IrradianceVolumes
     opt_state: LightAdamState
+
+
+class PbrInputs(NamedTuple):
+    """What one iteration of the graphed step stages: its view and its
+    occlusion, a camera's uint8 baked map [cap, H, W, 1] (`step.chunk`) or
+    an occlusion colour [cap, 3] (a call of the step)."""
+
+    batch: TrainBatch
+    occlusion: torch.Tensor
+
+    @property
+    def camera(self):
+        return self.batch.camera
 
 
 def create_pbr_state(cfg: OptimizationConfig, bound: float = 1.5, base_res: int = 32,
@@ -196,14 +245,30 @@ def compute_losses_pbr(out, batch: TrainBatch, light_params: dict, albedo_pts: t
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
+def baked_occlusion_color(occlusion: torch.Tensor, light: dict) -> torch.Tensor:
+    """[cap, 3] occlusion colour of a camera's uint8 baked map [cap, H, W, 1]
+    under the light's grayscale envmap (train.py:196-198), without grad."""
+    with torch.no_grad():
+        env = export_envmap(light, occlusion.shape[1], occlusion.shape[2])
+        return baking.occlusion_color(occlusion.float() * (1.0 / 255.0),
+                                      env.mean(dim=-1, keepdim=True))
+
+
 def make_pbr_train_step(smpl_model: SMPLModel, tx: Adam, light_tx: LightAdam,
                         cfg: OptimizationConfig, raster_config: RasterizerConfig,
-                        bg: torch.Tensor, lpips_fn: Callable | None = None):
+                        bg: torch.Tensor, lpips_fn: Callable | None = None,
+                        donate: bool = False):
     """The branch-B step:
     step(ts, pbr_state, batch, knn3, occlusion_color, prefilter_w,
-    active_sh_degree) -> (new ts, new pbr_state, metrics). The inputs are not
-    modified. `step.loss_and_grads(...)` (same arguments) is its first half:
-    (loss, metrics, {"albedo", "roughness", "light"} gradients)."""
+    active_sh_degree) -> (new ts, new pbr_state, metrics). With donate=False
+    the inputs are not modified. With donate=True it is a `GraphedPbrStep`:
+    captured CUDA graphs on the card, the eager step with the same staging
+    on the CPU; it writes the new states into the tensors of the states it
+    returns, so the states passed in are consumed, and it has
+    `step.chunk(ts, pbr_state, views, occ_buf, knn3, prefilter_w, idx, bidx,
+    active_sh_degree, pad_to)`. `step.loss_and_grads(...)` (the step's
+    arguments) is its first half: (loss, metrics, {"albedo", "roughness",
+    "light"} gradients); `step.eager` the functional step."""
     brdf_lut = get_brdf_lut(bg.device)
 
     def loss_and_grads(ts: TrainState, pbr_state: PbrState, batch: TrainBatch,
@@ -229,8 +294,11 @@ def make_pbr_train_step(smpl_model: SMPLModel, tx: Adam, light_tx: LightAdam,
             grads = torch.autograd.grad(total, (albedo, roughness, base))
         return total.detach(), metrics, dict(zip(("albedo", "roughness", "light"), grads))
 
-    def step(ts: TrainState, pbr_state: PbrState, batch: TrainBatch, knn3: torch.Tensor,
-             occlusion_color: torch.Tensor, prefilter_w: dict, active_sh_degree: int):
+    def update(ts: TrainState, pbr_state: PbrState, batch: TrainBatch, knn3: torch.Tensor,
+               occlusion_color: torch.Tensor, prefilter_w: dict, active_sh_degree: int,
+               staged: torch.Tensor | None = None):
+        """The step; with `staged` (rows of GROUPS, then the light's), both
+        optimisers read their scalars from it."""
         _, metrics, grads = loss_and_grads(ts, pbr_state, batch, knn3, occlusion_color,
                                            prefilter_w, active_sh_degree)
         g = ts.gauss.params
@@ -239,12 +307,12 @@ def make_pbr_train_step(smpl_model: SMPLModel, tx: Adam, light_tx: LightAdam,
             roughness=grads["roughness"])
         new_params, opt_state = tx.step(
             trainable_params(ts), TrainableParams(gauss_grads, None, None), ts.opt_state,
-            groups=MATERIAL_GROUPS)
+            groups=MATERIAL_GROUPS, staged=None if staged is None else staged[:len(GROUPS)])
         vol = pbr_state.volumes.coefficients
         new_lv, light_state = light_tx.step(
             {"light": pbr_state.light, "volumes": vol},
             {"light": {"base": grads["light"]}, "volumes": torch.zeros_like(vol)},
-            pbr_state.opt_state)
+            pbr_state.opt_state, staged=None if staged is None else staged[len(GROUPS)])
         # clamp_ parity (train.py:423): the light stays non-negative
         new_pbr = PbrState(light={"base": torch.clamp(new_lv["light"]["base"], min=0.0)},
                            volumes=pbr_state.volumes._replace(coefficients=new_lv["volumes"]),
@@ -255,8 +323,89 @@ def make_pbr_train_step(smpl_model: SMPLModel, tx: Adam, light_tx: LightAdam,
                             step=ts.step + 1)
         return new_ts, new_pbr, metrics
 
-    step.loss_and_grads = loss_and_grads
-    return step
+    def step(ts: TrainState, pbr_state: PbrState, batch: TrainBatch, knn3: torch.Tensor,
+             occlusion_color: torch.Tensor, prefilter_w: dict, active_sh_degree: int):
+        return update(ts, pbr_state, batch, knn3, occlusion_color, prefilter_w,
+                      active_sh_degree)
+
+    def apply(state: tuple, inputs: PbrInputs, active_sh_degree: int,
+              staged: torch.Tensor | None = None, frozen: bool | None = None):
+        """The graphed program on (ts, pbr_state, knn3, prefilter_w); the
+        geometry is always frozen here (`frozen` is not read)."""
+        ts, pbr_state, knn3, prefilter_w = state
+        occ = inputs.occlusion
+        if occ.dtype == torch.uint8:
+            occ = baked_occlusion_color(occ, pbr_state.light)
+        new_ts, new_pbr, metrics = update(ts, pbr_state, inputs.batch, knn3, occ, prefilter_w,
+                                          active_sh_degree, staged)
+        return (new_ts, new_pbr, knn3, prefilter_w), metrics
+
+    out = step
+    if donate:
+        out = GraphedPbrStep(apply, tx, light_tx,
+                             instance_capacity=raster_config.instance_capacity)
+    out.loss_and_grads = loss_and_grads
+    out.eager = step
+    return out
+
+
+class GraphedPbrStep(GraphedTrainStep):
+    """The branch-B step served from captured CUDA graphs on the card (run
+    eagerly on the CPU): `step(ts, pbr_state, batch, knn3, occlusion_color,
+    prefilter_w, deg)` and `step.chunk(ts, pbr_state, views, occ_buf, knn3,
+    prefilter_w, idx, bidx, deg, pad_to)`, as the JAX step and its `chunk`.
+
+    `GraphedTrainStep` with another state: the graphs own (ts, pbr_state,
+    knn3, prefilter_w) (the last two constant, copied in when the caller
+    passes other tensors), each replay stages a `PbrInputs` and one row per
+    scene group and one for the light, and a step advances the material
+    groups' counts, the light's count and the step (train/graph.py's
+    docstring says the rest)."""
+
+    def __init__(self, apply: Callable, tx: Adam, light_tx: LightAdam, *,
+                 instance_capacity: int | None):
+        super().__init__(apply, tx, frozen_from=0, instance_capacity=instance_capacity)
+        self.light_tx = light_tx
+
+    def __call__(self, ts, pbr_state, batch, knn3, occlusion_color, prefilter_w,
+                 active_sh_degree: int):
+        """One step -> (new ts, new pbr_state, metrics of this call)."""
+        inputs = PbrInputs(batch, occlusion_color)
+        (ts, pbr_state, _, _), (mseq, _) = self._run(
+            (ts, pbr_state, knn3, prefilter_w), [(inputs, tree_leaves(inputs))],
+            active_sh_degree, 1)
+        return ts, pbr_state, {k: v[0] for k, v in mseq.items()}
+
+    def chunk(self, ts, pbr_state, views, occ_buf, knn3, prefilter_w, idx, bidx,
+              active_sh_degree: int, pad_to: int = 0):
+        """len(idx) steps, step t on view idx[t] of the stack (train/graph.py::
+        stack_views) and the occlusion in slot bidx[t] of occ_buf -> (ts,
+        pbr_state, (metrics stacked [max(pad_to, len(idx))], len(idx)))."""
+        items = []
+        for i, b in zip(idx, bidx):
+            occ = occ_buf[b]
+            items.append((PbrInputs(views.views[i], occ), [*views.leaves[i], occ]))
+        (ts, pbr_state, _, _), out = self._run((ts, pbr_state, knn3, prefilter_w), items,
+                                               active_sh_degree, max(pad_to, len(items)))
+        return ts, pbr_state, out
+
+    def _staged_rows(self, state, k: int) -> np.ndarray:
+        ts, pbr_state = state[:2]
+        return np.concatenate([self.tx.staged_rows(ts.opt_state.count, k),
+                               self.light_tx.staged_rows(pbr_state.opt_state.count, k)[:, None]],
+                              axis=1)
+
+    @staticmethod
+    def _train_state(state):
+        return state[0]
+
+    def _advanced(self, state, k: int):
+        ts, pbr_state, *consts = state
+        count = {g: c + k if g in MATERIAL_GROUPS else c for g, c in ts.opt_state.count.items()}
+        ts = ts._replace(step=ts.step + k, opt_state=ts.opt_state._replace(count=count))
+        light = pbr_state.opt_state
+        return (ts, pbr_state._replace(opt_state=light._replace(count=light.count + k)),
+                *consts)
 
 
 def _pose_for_bake(ts: TrainState, batch: TrainBatch, smpl_model: SMPLModel):
@@ -279,10 +428,11 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
                    num_iterations: int, max_sh_degree: int = 3, seed: int = 0,
                    bake_height: int = 16, bake_width: int = 32, bake_max_cells: int = 128,
                    bake_full_coverage: bool = True, callback: Callable | None = None,
-                   sharding=None):
-    """The branch-B loop (train.py iter > pbr_iteration), the JAX loop's
-    non-chunked branch: views in the order of np.random.RandomState(seed + 7);
-    each camera's per-Gaussian occlusion maps are baked on its first visit
+                   scan_chunk: int = 1, callback_iters: tuple = (),
+                   occ_budget_mb: float = 1024.0, sharding=None):
+    """The branch-B loop (train.py iter > pbr_iteration), the JAX loop: views
+    in the order of np.random.RandomState(seed + 7); each camera's
+    per-Gaussian occlusion maps are baked on its first visit
     (view.set_occlusion parity, gaussian_renderer/__init__.py:152-160) and
     cached as uint8 (round half to even; 1/255 steps, below the blend's own
     alpha cutoff), then modulated by the current grayscale envmap each step
@@ -294,6 +444,19 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
     Gaussians it leaves out. callback(it, ts, pbr_state, metrics) runs after
     every iteration; metrics carry `bake_out_of_budget`, summed over bakes.
     Returns (ts, pbr_state, metrics).
+
+    scan_chunk > 1 runs up to that many iterations per call of
+    `step_fn.chunk` (make_pbr_train_step(..., donate=True)) on a [V, ...]
+    stack of the views, each iteration's occlusion in a slot of a uint8
+    [K, cap, H, W, 1] buffer on the device: K = min(scan_chunk, V, the
+    cameras that fit in `occ_budget_mb`), a camera placed on its first use
+    in a chunk, in a free slot or in that of a camera the chunk does not
+    use. A chunk never crosses an SH-degree change or an iteration in
+    `callback_iters`, and ends early where its views would need more than
+    K cameras; the view sequence is that of scan_chunk=1. The callback
+    still fires every iteration, with that iteration's metrics from the
+    chunk's buffer (device tensors) and the states at the chunk's end. A
+    step_fn without `.chunk` runs one step per call.
 
     With `sharding` (parallel/mesh.py::StateSharding, a multi-rank run),
     `ts` is this rank's share of the state (a `Sharded`) in and out, as
@@ -312,6 +475,16 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
     metrics: dict = {}
     bake_oob_total = 0
     occ_cache: dict = {}          # camera index -> uint8 [cap or c, H, W, 1]
+    chunked = scan_chunk > 1 and hasattr(step_fn, "chunk")
+    cb_set = {int(i) for i in callback_iters}
+    if chunked:
+        views = stack_views(batches)
+        cap = ts.gauss.capacity
+        k_max = max(1, min(scan_chunk, len(batches),
+                           int(occ_budget_mb * 1e6) // max(cap * bake_height * bake_width, 1)))
+        occ_buf = torch.zeros((k_max, cap, bake_height, bake_width, 1), dtype=torch.uint8,
+                              device=dev)
+        slot_of: dict = {}        # camera index -> buffer slot
 
     def ensure_baked(bi):
         nonlocal bake_oob_total
@@ -331,23 +504,65 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
         occ_cache[bi] = occ if sharding is None else \
             sharding.shard(occ, w.gauss.capacity).local
 
+    def ensure_in_buffer(bi, keep: set) -> None:
+        """Camera bi's map into a free slot of the buffer, or into the slot
+        of a camera that the chunk does not use."""
+        if bi in slot_of:
+            return
+        ensure_baked(bi)
+        if len(slot_of) < k_max:
+            slot = len(slot_of)
+        else:
+            slot = slot_of.pop(next(k for k in slot_of if k not in keep))
+        occ_buf[slot].copy_(occ_cache[bi])
+        slot_of[bi] = slot
+
     def pick_index():
         nonlocal stack
         if not stack:
             stack = list(range(len(batches)))
         return stack.pop(host_rng.randint(len(stack)))
 
-    for it in range(start_iteration + 1, start_iteration + num_iterations + 1):
+    def chunk_end(it):
+        """Last iteration of the chunk from `it` (the JAX loop's rule)."""
+        end = min(it + scan_chunk - 1, start_iteration + num_iterations)
+        end = min(end, (it // 1000 + 1) * 1000 - 1)     # one SH degree per chunk
+        return next((e for e in range(it, end + 1) if e in cb_set), end)
+
+    pending = None    # the view that a chunk left out for want of a slot
+    it = start_iteration + 1
+    while it <= start_iteration + num_iterations:
         deg = min(it // 1000, max_sh_degree)
-        bi = pick_index()
-        ensure_baked(bi)
-        with torch.no_grad():
-            env = export_envmap(pbr_state.light, bake_height, bake_width)
-            occ_col = baking.occlusion_color(occ_cache[bi].float() * (1.0 / 255.0),
-                                             env.mean(dim=-1, keepdim=True))
-        ts, pbr_state, metrics = step_fn(ts, pbr_state, batches[bi], knn3, occ_col,
-                                         prefilter_w, deg)
-        metrics = dict(metrics, bake_out_of_budget=bake_oob_total)
-        if callback is not None:
-            callback(it, ts, pbr_state, metrics)
+        if chunked:
+            idx: list = []
+            distinct: set = set()
+            for _ in range(it, chunk_end(it) + 1):
+                bi = pending if pending is not None else pick_index()
+                pending = None
+                if bi not in distinct and len(distinct) >= k_max:
+                    pending = bi       # the next chunk starts with this view
+                    break
+                distinct.add(bi)
+                idx.append(bi)
+            for bi in idx:
+                ensure_in_buffer(bi, distinct)
+            ts, pbr_state, (mseq, n) = step_fn.chunk(
+                ts, pbr_state, views, occ_buf, knn3, prefilter_w, idx,
+                [slot_of[bi] for bi in idx], deg, pad_to=scan_chunk)
+            for t in range(n):
+                metrics = {k: v[t] for k, v in mseq.items()}
+                metrics["bake_out_of_budget"] = bake_oob_total
+                if callback is not None:
+                    callback(it + t, ts, pbr_state, metrics)
+            it += n - 1
+        else:
+            bi = pick_index()
+            ensure_baked(bi)
+            occ_col = baked_occlusion_color(occ_cache[bi], pbr_state.light)
+            ts, pbr_state, metrics = step_fn(ts, pbr_state, batches[bi], knn3, occ_col,
+                                             prefilter_w, deg)
+            metrics = dict(metrics, bake_out_of_budget=bake_oob_total)
+            if callback is not None:
+                callback(it, ts, pbr_state, metrics)
+        it += 1
     return ts, pbr_state, metrics

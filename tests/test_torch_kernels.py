@@ -930,3 +930,156 @@ def test_graphed_train_replays_count_the_captured_launches(train_scene):
     torch.cuda.synchronize()
     assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == \
         {k: n * v for k, v in per_step.items()}
+
+
+# ---- branch B from captured CUDA graphs (train/pbr.py::GraphedPbrStep) ----
+# make_pbr_train_step(..., donate=True) against the eager step, and a bake
+# sweep's graph replays (occlusion/baking.py) against the same cell program
+# run slot by slot: the same kernels on the same inputs, so the same bits.
+
+@pytest.fixture(scope="module")
+def pbr_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest "
+                    "tests/test_torch_kernels.py on the GPU")
+    from mygauhuman_torch.config import OptimizationConfig
+    from mygauhuman_torch.data.synthetic import make_synthetic_scene
+    from mygauhuman_torch.eval.lpips import LPIPS
+    from mygauhuman_torch.models.mlps import init_lbs_offset, init_pose_refiner
+    from mygauhuman_torch.ops.rasterize import RasterizerConfig
+    from mygauhuman_torch.train import pbr as TPB
+    from mygauhuman_torch.train import trainer as TT
+
+    cfg = RasterizerConfig(tile_capacity=1024, instance_capacity=4 * 1024)
+    scene = make_synthetic_scene(n_views=4, width=128, height=128, n_verts=400,
+                                 capacity=1024, raster_config=cfg, device="cuda")
+    opt = OptimizationConfig(pbr_iteration=0)
+    gen = torch.Generator().manual_seed(0)
+    ts, tx = TT.create_train_state(opt, scene.init_state, init_pose_refiner(gen, device="cuda"),
+                                   init_lbs_offset(gen, device="cuda"))
+    pbr, ltx = TPB.create_pbr_state(opt, base_res=16, device="cuda")
+    lpips = LPIPS(device="cuda")
+    steps = [TPB.make_pbr_train_step(scene.smpl_model, tx, ltx, opt, cfg,
+                                     bg=torch.zeros(3, device="cuda"), lpips_fn=lpips, donate=d)
+             for d in (False, True)]
+    rng = np.random.RandomState(4)
+    occ_buf = torch.as_tensor(rng.randint(0, 256, (2, 1024, 8, 16, 1)).astype(np.uint8),
+                              device="cuda")
+    return dict(scene=scene, ts=ts, pbr=pbr, knn3=TPB.compute_knn3(ts.gauss),
+                pw=TPB.prefilter_weight_set(16, "cuda"), occ_buf=occ_buf, steps=steps)
+
+
+def assert_same_pbr_state(a, b):
+    from mygauhuman_torch.train.optim import tree_leaves
+
+    assert a[0].step == b[0].step and a[0].opt_state.count == b[0].opt_state.count
+    assert a[1].opt_state.count == b[1].opt_state.count
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b), strict=True)):
+        assert torch.equal(x, y), f"state leaf {i} {tuple(x.shape)}"
+
+
+def test_graphed_pbr_step_matches_eager_bit_for_bit(pbr_scene):
+    from mygauhuman_torch.train import pbr as TPB
+    from mygauhuman_torch.train.graph import stack_views
+
+    s = pbr_scene
+    eager, graphed = s["steps"]
+    batches, occ_buf = s["scene"].batches, s["occ_buf"]
+    colour = torch.rand((1024, 3), generator=torch.Generator().manual_seed(1)).cuda()
+    e = g = (s["ts"], s["pbr"])
+    for v in (0, 1, 2):
+        *e, m_e = eager(*e, batches[v], s["knn3"], colour, s["pw"], 0)
+        *g, m_g = graphed(*g, batches[v], s["knn3"], colour, s["pw"], 0)
+        for k in m_e:
+            assert torch.equal(m_e[k], m_g[k]), (v, k)
+        assert_same_pbr_state(e, g)
+    idx, bidx = [3, 1, 0, 2, 1], [0, 1, 1, 0, 1]
+    *g, (mseq, n) = graphed.chunk(*g, stack_views(batches), occ_buf, s["knn3"], s["pw"], idx,
+                                  bidx, 0, pad_to=8)
+    assert n == 5 and mseq["loss"].shape == (8,)
+    for t, (v, b) in enumerate(zip(idx, bidx)):
+        col = TPB.baked_occlusion_color(occ_buf[b], e[1].light)
+        *e, m_e = eager(*e, batches[v], s["knn3"], col, s["pw"], 0)
+        for k in m_e:
+            assert torch.equal(m_e[k], mseq[k][t]), (t, k)
+    assert_same_pbr_state(e, g)
+    assert graphed.captures == 2     # an occlusion colour, a baked map
+
+
+def test_graphed_pbr_chunk_makes_no_host_sync_and_counts_its_launches(pbr_scene):
+    from mygauhuman_torch.train.graph import stack_views
+
+    s = pbr_scene
+    eager, graphed = s["steps"]
+    views = stack_views(s["scene"].batches)
+    state = (s["ts"], s["pbr"])
+    *state, _ = graphed.chunk(*state, views, s["occ_buf"], s["knn3"], s["pw"], [0], [0], 0)
+    (per_step,) = [v for k, v in graphed.launches.items() if k.shapes[-1] == (1024, 8, 16, 1)]
+    for name in ("knn", "deform", "blend_fwd", "blend_fwd_ckpt", "blend_bwd", "blend_bwd_sums",
+                 "blend_bwd_rows"):
+        assert per_step[name] == 1, (name, per_step)
+    assert "deform_bwd" not in per_step and "blend_bwd_ckpt" not in per_step
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        *state, _ = graphed.chunk(*state, views, s["occ_buf"], s["knn3"], s["pw"],
+                                  [2, 1, 3, 0], [1, 0, 0, 1], 0, pad_to=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == \
+        {k: 4 * v for k, v in per_step.items()}
+
+
+def bake_cloud(device, n=3000, cap=3072, seed=5):
+    """A seeded body with an occluding slab, 72 dead slots: the bake's
+    inputs (means, covariances, opacities, normals, alive)."""
+    rng = np.random.RandomState(seed)
+    body = rng.randn(n - 600, 3) * np.array([0.25, 0.45, 0.2])
+    slab = rng.randn(600, 3) * np.array([0.3, 0.05, 0.3]) + np.array([0.0, 0.8, 0.0])
+    pts = np.concatenate([body, slab, rng.randn(cap - n, 3) * 5.0]).astype(np.float32)
+    scales = torch.as_tensor(np.exp(rng.randn(cap, 3) * 0.3 - 3.5).astype(np.float32))
+    quats = torch.as_tensor(rng.randn(cap, 4).astype(np.float32))
+    nrm = rng.randn(cap, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return tuple(torch.as_tensor(a).to(device) for a in (
+        pts, covariance6_from_scaling_rotation(scales, quats),
+        (rng.rand(cap) * 0.6 + 0.35).astype(np.float32), nrm, np.arange(cap) < n))
+
+
+def test_device_face_cameras_are_the_host_ones(cuda):
+    from mygauhuman_torch.occlusion.baking import face_cameras, face_cameras_torch
+
+    c = np.random.RandomState(2).randn(50, 3).astype(np.float32)
+    got = face_cameras_torch(torch.as_tensor(c, device=cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got, face_cameras(c))
+
+
+def test_graphed_bake_sweep_matches_eager_bit_for_bit(cuda):
+    from mygauhuman_torch.occlusion import baking
+
+    means, cov6, opac, _, alive = bake_cloud(cuda)
+    grid_res, max_cells = 4, 40
+    n_occ = baking.count_occupied(means, alive, grid_res)
+    assert max_cells < n_occ < 2 * max_cells   # the last window clamps and holds empty slots
+    kw = dict(height=16, width=32, grid_res=grid_res, max_cells=max_cells, face_res=32,
+              config=baking.DEFAULT_BAKE_CONFIG)
+    vis0 = torch.ones((means.shape[0], 16, 32, 1), device=cuda)
+    for offset in (0, max_cells):
+        want, want_n = baking._bake_sweep(means, cov6, opac, alive, vis0, offset, eager=True,
+                                          **kw)
+        cuda_lib.reset_launches()
+        got, got_n = baking._bake_sweep(means, cov6, opac, alive, vis0, offset, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_n, want_n), offset
+        assert cuda_lib.LAUNCHES["blend_fwd_tiles"] >= 6 * max_cells
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = baking._bake_sweep(means, cov6, opac, alive, vis0, 0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["blend_fwd_tiles"] == 6 * max_cells    # replays only

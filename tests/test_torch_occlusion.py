@@ -210,6 +210,39 @@ def test_bake_occlusion_full_matches_jax():
     assert one_oob == 0 and torch.equal(one, got)
 
 
+def test_device_face_cameras_are_the_host_ones():
+    """The sweep's face cameras, built from the cells' centers with device
+    ops, are `face_cameras`' numbers bit for bit."""
+    c = np.random.RandomState(2).randn(40, 3).astype(np.float32)
+    np.testing.assert_array_equal(TBK.face_cameras_torch(t(c)).numpy(), TBK.face_cameras(c))
+
+
+def test_bake_sweep_with_a_clamped_window_matches_jax():
+    """Two sweeps of 36 over 39 occupied cells of 64: the second window's
+    offset is clamped to res^3 - max_cells = 28, and the window holds 25
+    cells that are not occupied. The sweep alone and the whole bake against
+    the JAX package's."""
+    cloud = _cloud(5)
+    grid_res, m = 4, 36
+    n_occ = TBK.count_occupied(t(cloud[0]), t(cloud[4]), grid_res)
+    assert n_occ == 39 and 2 * m > grid_res ** 3
+    jargs, targs = [jnp.asarray(a) for a in cloud], [t(a) for a in cloud]
+    kw = dict(grid_res=grid_res, max_cells=m, **BAKE_KW)
+    vis0 = np.ones((cloud[0].shape[0], 8, 16, 1), np.float32)
+    jv, jn = JBK._bake_sweep(*jargs[:3], jargs[4], jnp.asarray(vis0), jnp.int32(m), config=JCFG,
+                             **kw)
+    tv, tn = TBK._bake_sweep(*targs[:3], targs[4], t(vis0), m, config=TCFG, **kw)
+    assert int(tn) == int(jn) == 0
+    close(tv, jv)
+    assert not torch.equal(tv, t(vis0))
+    want, want_oob, want_sweeps = JBK.bake_occlusion_full(
+        *jargs, grid_res=grid_res, sweep_cells=m, config=JCFG, **BAKE_KW)
+    got, got_oob, got_sweeps = TBK.bake_occlusion_full(
+        *targs, grid_res=grid_res, sweep_cells=m, config=TCFG, **BAKE_KW)
+    assert got_sweeps == want_sweeps == 2 and int(got_oob) == int(want_oob) == 0
+    close(got, want)
+
+
 def test_occlusion_color_matches_jax():
     rng = np.random.RandomState(7)
     occ = rng.rand(20, 8, 16, 1).astype(np.float32)
