@@ -205,8 +205,10 @@ def main(argv=None) -> dict:
     CLI does, plus the run's record: the first / last iteration it ran,
     the branch-A graphs (`graph`: `GraphedTrainStep.record()`, else None
     under --multichip on several ranks), Gaussians alive
-    and capacity at the end, the densify events' counters, the eval and save
-    phases' times, the final TrainState (`state`, whole on every rank), and
+    and capacity at the end, the densify events' counters, `phases`: the
+    run's `utils/profiling.py::PHASES` (eval, saves, state gathers and
+    densify events, `mgh.train.densify`), the
+    final TrainState (`state`, whole on every rank), and
     with branch B its PbrState (`pbr_state`) and `pbr` {iterations,
     elapsed_s, bake_out_of_budget, graph: its `record()`, else None under
     --multichip on several ranks} (else None); under --multichip on
@@ -233,7 +235,7 @@ def main(argv=None) -> dict:
     )
     from mygauhuman_torch.utils.image_io import write_png
     from mygauhuman_torch.utils.logging import MetricLogger
-    from mygauhuman_torch.utils.profiling import PhaseTimer
+    from mygauhuman_torch.utils.profiling import PHASES
 
     dev = resolve_device(args.device)
     mesh = None
@@ -402,7 +404,10 @@ def main(argv=None) -> dict:
     scan_chunk = 1 if args.gui else max(1, args.scan_chunk)
     # only rank 0 writes: the other ranks log nowhere
     logger = MetricLogger(out_dir) if is_main else _NoLogger()
-    timer = PhaseTimer()
+    # the program's own phases: eval, saves and state gathers here, densify
+    # events in the loop
+    timer = PHASES
+    timer.reset()
     eval_cache: dict = {}
     gui = None
     if args.gui and is_main:

@@ -37,6 +37,11 @@ device.
 not make: the launches a capture records are kept per key (`launches`) and
 added on every replay, and the capture itself (which runs nothing) adds
 none.
+
+Spans (utils/profiling.py), host code only: `mgh.render.stage`,
+`mgh.render.capture` (on a key miss) and `mgh.render.replay` (the replay,
+or the eager frame on the CPU). A caller that wants a frame's device time
+records a pair of CUDA events around the call, as `cli.render` does.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from mygauhuman_torch.models.smpl import SMPLModel
 from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops.rasterize import RasterizerConfig
 from mygauhuman_torch.render.renderer import FrameInputs, RenderResult, render_frame
+from mygauhuman_torch.utils.profiling import annotate
 
 
 class GraphKey(NamedTuple):
@@ -142,14 +148,17 @@ class GraphedRenderer:
                 n: (torch.empty((), dtype=torch.float32, device=self.device)
                     if n == "opacity_eps" else torch.empty_like(t, device=self.device))
                 for n, t in request.items()})
-        self._stage(slot, request)
-        if not self.graphed:
-            with torch.no_grad():
-                return self._frame(slot.inputs, key)
-        if slot.graph is None:
-            self._capture(slot, key)
-        slot.graph.replay()
-        cuda_lib.count_replay(slot.launches)
+        with annotate("mgh.render.stage"):
+            self._stage(slot, request)
+        if self.graphed and slot.graph is None:
+            with annotate("mgh.render.capture"):
+                self._capture(slot, key)
+        with annotate("mgh.render.replay"):
+            if not self.graphed:
+                with torch.no_grad():
+                    return self._frame(slot.inputs, key)
+            slot.graph.replay()
+            cuda_lib.count_replay(slot.launches)
         return slot.out
 
     @staticmethod

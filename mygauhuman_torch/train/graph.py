@@ -52,6 +52,13 @@ rows (both optimisers'), its TrainState and its host values after k steps.
 not make: the launches a capture recorded are kept per key (`launches`)
 and added on every replay; the capture itself (which runs nothing) adds
 none, and the warm-up step (which runs) adds its own.
+
+Spans (utils/profiling.py), host code only: `mgh.train.adopt` (the state
+copied in, or new tensors), `mgh.train.rows` (the Adam rows' pinned copy),
+per step `mgh.train.stage` (the view's and Adam row's copies) and
+`mgh.train.replay` (the replay, or the eager step on the CPU, and the
+metric row's copy), and `mgh.train.capture[<key>]` (warm-up and capture;
+`captures` and `capture_s` count them).
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ import torch
 
 from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.train.optim import tree_leaves, tree_map
+from mygauhuman_torch.utils.profiling import annotate
 
 
 class StepKey(NamedTuple):
@@ -234,34 +242,38 @@ class GraphedTrainStep:
     # ---- a run of steps ------------------------------------------------------
 
     def _run(self, ts, items: list, deg: int, pad_to: int):
-        self._adopt(ts)
+        with annotate("mgh.train.adopt"):
+            self._adopt(ts)
         k = len(items)
         dev = self.device
-        rows = torch.from_numpy(self._staged_rows(ts, k))
-        if self.graphed:
-            # one copy per run; the pinned block is not reused before it lands
-            rows = rows.pin_memory().to(dev, non_blocking=True)
+        with annotate("mgh.train.rows"):
+            rows = torch.from_numpy(self._staged_rows(ts, k))
+            if self.graphed:
+                # one copy per run; the pinned block is not reused before it lands
+                rows = rows.pin_memory().to(dev, non_blocking=True)
         step = self._train_state(ts).step
         bufs: dict = {}
         for t, (batch, leaves) in enumerate(items):
-            slot, key = self._slot(batch, leaves, deg, step + t >= self.frozen_from,
-                                   tuple(rows.shape[1:]))
-            for dst, src in zip(slot.leaves, leaves):
-                dst.copy_(src)
-            slot.adam_row.copy_(rows[t])
-            if not self.graphed:
-                out = self._program(slot, key, write=True)
-            else:
-                if slot.graph is None:
-                    self._capture(slot, key)
-                slot.graph.replay()
-                cuda_lib.count_replay(slot.launches)
-                out = slot.out
-            for dtype, (names, vec) in out.items():
-                if dtype not in bufs:
-                    bufs[dtype] = (names, torch.zeros((pad_to, len(names)), dtype=dtype,
-                                                      device=dev))
-                bufs[dtype][1][t].copy_(vec)
+            with annotate("mgh.train.stage"):
+                slot, key = self._slot(batch, leaves, deg, step + t >= self.frozen_from,
+                                       tuple(rows.shape[1:]))
+                for dst, src in zip(slot.leaves, leaves):
+                    dst.copy_(src)
+                slot.adam_row.copy_(rows[t])
+            if self.graphed and slot.graph is None:
+                self._capture(slot, key)
+            with annotate("mgh.train.replay"):
+                if not self.graphed:
+                    out = self._program(slot, key, write=True)
+                else:
+                    slot.graph.replay()
+                    cuda_lib.count_replay(slot.launches)
+                    out = slot.out
+                for dtype, (names, vec) in out.items():
+                    if dtype not in bufs:
+                        bufs[dtype] = (names, torch.zeros((pad_to, len(names)), dtype=dtype,
+                                                          device=dev))
+                    bufs[dtype][1][t].copy_(vec)
         mseq = {name: buf[:, j] for names, buf in bufs.values() for j, name in enumerate(names)}
         self.state = self._advanced(self.state, k)
         return self.state, (mseq, k)
@@ -318,12 +330,14 @@ class GraphedTrainStep:
         """Warm up on the side stream (results discarded), then capture one
         step on it."""
         t0 = time.perf_counter()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.device)
-        slot.graph, slot.out, slot.launches = cuda_lib.capture_graph(
-            lambda: self._program(slot, key, write=False),
-            lambda: self._program(slot, key, write=True), self.stream, self.pool)
+        with annotate(f"mgh.train.capture[{key.width}x{key.height} fov "
+                      f"{key.tan_fovx:.4f},{key.tan_fovy:.4f}]"):
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.device)
+            slot.graph, slot.out, slot.launches = cuda_lib.capture_graph(
+                lambda: self._program(slot, key, write=False),
+                lambda: self._program(slot, key, write=True), self.stream, self.pool)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

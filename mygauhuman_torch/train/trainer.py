@@ -52,6 +52,7 @@ from mygauhuman_torch.train.optim import (
     tree_leaves,
     tree_map,
 )
+from mygauhuman_torch.utils.profiling import PHASES, annotate
 
 
 class TrainBatch(NamedTuple):
@@ -299,7 +300,12 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
     `step_fn` and `callback` take it: a densify event gathers the whole
     state, grows and densifies it as on one device (every rank draws the
     same split noise from the same seed) and shards the result; the opacity
-    reset, elementwise, runs on the share."""
+    reset, elementwise, runs on the share.
+
+    Spans (utils/profiling.py): `mgh.train.chunk` around each chunk's call,
+    `mgh.train.loss_check` around the loss's read, where the host waits for
+    the chunk, and `mgh.train.densify` around each event, counted in
+    `PHASES`."""
     num_iterations = num_iterations or cfg.iterations
     host_rng = np.random.RandomState(seed)
     gen = torch.Generator().manual_seed(seed)
@@ -339,23 +345,29 @@ def train_loop(ts: TrainState, tx: Adam, step_fn, batches: list, cfg: Optimizati
         if chunked:
             end = chunk_end(it)
             idx = [pick_index() for _ in range(end - it + 1)]
-            ts, (mseq, n) = step_fn.chunk(ts, views, idx, deg, pad_to=scan_chunk)
+            with annotate("mgh.train.chunk"):
+                ts, (mseq, n) = step_fn.chunk(ts, views, idx, deg, pad_to=scan_chunk)
             metrics = {k: v[n - 1] for k, v in mseq.items()}
             it = end
         else:
             ts, metrics = step_fn(ts, batches[pick_index()], deg)
-        if (chunked or it % 50 == 0) and not np.isfinite(float(metrics["loss"])):
-            path = save_checkpoint("output/diverged", it, whole(ts))
-            raise FloatingPointError(f"non-finite loss at iteration {it}; state snapshot at "
-                                     f"{path}")
+        if chunked or it % 50 == 0:
+            # the host waits here for the chunk's last step
+            with annotate("mgh.train.loss_check"):
+                finite = np.isfinite(float(metrics["loss"]))
+            if not finite:
+                path = save_checkpoint("output/diverged", it, whole(ts))
+                raise FloatingPointError(f"non-finite loss at iteration {it}; state snapshot "
+                                         f"at {path}")
         if is_densify(it):
-            full = maybe_grow_capacity(whole(ts))
-            full, dinfo = densify_event(full, gen, cfg, extent, smpl_vertices, it)
-            ts = full if sharding is None else sharding.shard(full, full.gauss.capacity)
-            metrics = dict(metrics)
-            metrics.update({f"densify_{k}": int(v) for k, v in dinfo.items()})
-            metrics["capacity"] = full.gauss.capacity
-            del full    # a share's whole state is not kept through the next step
+            with PHASES.phase("mgh.train.densify"):
+                full = maybe_grow_capacity(whole(ts))
+                full, dinfo = densify_event(full, gen, cfg, extent, smpl_vertices, it)
+                metrics = dict(metrics)
+                metrics.update({f"densify_{k}": int(v) for k, v in dinfo.items()})
+                metrics["capacity"] = full.gauss.capacity
+                ts = full if sharding is None else sharding.shard(full, full.gauss.capacity)
+                del full    # a share's whole state is not kept through the next step
         if it % cfg.opacity_reset_interval == 0:
             ts = _reset_opacity(ts) if sharding is None else \
                 ts._replace(local=_reset_opacity(ts.local))

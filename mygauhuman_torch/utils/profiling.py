@@ -1,43 +1,68 @@
-"""Profiling helpers: phase timers and profiler traces (port of
+"""Profiling helpers: the program's spans and phase counters (port of
 utils/profiling.py).
 
-`PhaseTimer` accumulates wall-clock time per named phase and waits for the
-card at a phase's end when it is given a result to wait on. `trace`
-records a `torch.profiler` trace of the CPU and, when there is a card, its
-kernels (the JAX package's `xla_trace`); `annotate` names a span in it
-(`jax.profiler.TraceAnnotation` there).
+`annotate(name)` is the program's span (`jax.profiler.TraceAnnotation` in
+the JAX package): a `torch.profiler.record_function` while a profiler runs,
+else one shared null context behind one bool check, so a span on a
+per-frame or per-iteration path costs nothing measurable when nobody
+traces (an ungated `record_function` costs ~15 us on the CPU even then).
+Spans are named `mgh.<layer>.<step>` and wrap host code only: a span
+recorded while a CUDA graph is captured is not replayed, so what runs
+inside a replay is told apart by its kernels' names.
+
+`PhaseTimer` accumulates wall-clock time per named phase, each phase also
+a span, and waits for the card at a phase's end when it is given a result
+to wait on. `PHASES` is the program's own: it counts the densify events
+(`mgh.train.densify`, met at most once per event) and `cli.train`'s eval,
+saves and state gathers.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A named span in the profiler's trace while a profiler runs; the
+    shared null context otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class PhaseTimer:
     """Accumulating wall-clock timers with a device sync at phase ends.
 
     with timer.phase("render", result):  waits for the card at exit when
-    given a result to wait on and the process uses the card.
+    given a result to wait on and the process uses the card. The phase is
+    also the span `name`.
     """
 
     def __init__(self):
         self.totals: dict = defaultdict(float)
         self.counts: dict = defaultdict(int)
 
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
     @contextlib.contextmanager
     def phase(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_on is not None and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+        with annotate(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                if sync_on is not None and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                self.totals[name] += time.perf_counter() - t0
+                self.counts[name] += 1
 
     def summary(self) -> dict:
         return {
@@ -52,21 +77,4 @@ class PhaseTimer:
         }
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Record a torch.profiler trace; written to `<log_dir>/trace.json`
-    (Chrome trace format) at exit."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named span in the profiler trace."""
-    return torch.profiler.record_function(name)
+PHASES = PhaseTimer()

@@ -807,6 +807,33 @@ def test_graph_replays_count_the_captured_launches(graph_scene):
         {k: n * v for k, v in per_frame.items()}
 
 
+def test_graphed_frame_spans_make_no_host_sync(graph_scene, tmp_path):
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mygauhuman_torch.render.graph import GraphedRenderer
+
+    scene, kw, rows = graph_scene
+    renderer = GraphedRenderer(scene.gt_state, scene.smpl_model, **kw)
+    b = scene.batches[0]
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        renderer(b.camera, b.frame, **rows[0])     # the capture
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(n):
+                renderer(b.camera, b.frame, opacity_eps=1e-12 * i, **rows[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    prof.export_chrome_trace(str(tmp_path / "frames.json"))
+    names = [e["name"] for e in json.loads((tmp_path / "frames.json").read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert names.count("mgh.render.capture") == renderer.captures == 1
+    assert names.count("mgh.render.stage") == names.count("mgh.render.replay") == n + 1
+
+
 # ---- the training step from captured CUDA graphs (train/graph.py) ----------
 # make_train_step(..., donate=True) against the eager step on the same
 # inputs: the same kernels in the same order on the same inputs, so every

@@ -9,11 +9,12 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mygauhuman_tpu.utils.logging import MetricLogger as JLogger
 from mygauhuman_tpu.utils.profiling import PhaseTimer as JTimer
 from mygauhuman_torch.utils.logging import MetricLogger
-from mygauhuman_torch.utils.profiling import PhaseTimer, annotate, trace
+from mygauhuman_torch.utils.profiling import PhaseTimer, annotate
 
 torch.set_num_threads(1)
 
@@ -58,11 +59,11 @@ def test_phase_timer_summary_layout():
 
 
 def test_trace_records_annotated_span(tmp_path):
-    with trace(str(tmp_path)):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
         with annotate("eval_render"):
             torch.ones(8).sum()
     path = tmp_path / "trace.json"
-    assert path.exists()
+    prof.export_chrome_trace(str(path))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "eval_render" for e in events)
