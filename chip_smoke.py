@@ -2497,9 +2497,11 @@ def dna_phase(dev, n_sm, card):
 
         def lpips_term():
             with exact_convs():
-                stack = torch.stack([img, b0.gt_image, img, b0.gt_normal]) * bm[..., None]
-                crop = TT._lpips_crop(stack, bm, side)
-                lp = made["step"][1]["lpips_fn"](crop[0::2], crop[1::2]).sum()
+                m = bm[..., None]
+                rendered, gt = TT._lpips_crop((torch.stack([img, img]) * m,
+                                               torch.stack([b0.gt_image, b0.gt_normal]) * m),
+                                              bm, side)
+                lp = made["step"][1]["lpips_fn"](rendered, gt).sum()
                 torch.autograd.grad(lp, img)
 
         profile_calls(ssim_term, PROFILE_FRAMES,

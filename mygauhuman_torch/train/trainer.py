@@ -109,13 +109,13 @@ def scene_lpips_crop(bound_masks, pad: int = 8, align: int = 32) -> int:
     return int(min(side, max(b.shape[0] for b in masks), max(b.shape[1] for b in masks)))
 
 
-def _lpips_crop(stack: torch.Tensor, bm: torch.Tensor, crop: int = LPIPS_CROP) -> torch.Tensor:
-    """Crop [K, H, W, 3] to the static window centred on the mask's bbox
-    (the start is computed on the device: no host sync)."""
+def _lpips_crop(stacks, bm: torch.Tensor, crop: int = LPIPS_CROP) -> tuple:
+    """Crop each [K, H, W, 3] of `stacks` to one static window centred on
+    the mask's bbox (the start is computed on the device: no host sync)."""
     H, W = bm.shape
     ch, cw = min(crop, H), min(crop, W)
     if (ch, cw) == (H, W):
-        return stack
+        return tuple(stacks)
     on = bm > 0
     rows, cols = on.any(dim=1).int(), on.any(dim=0).int()
     y0, x0 = rows.argmax(), cols.argmax()
@@ -124,7 +124,7 @@ def _lpips_crop(stack: torch.Tensor, bm: torch.Tensor, crop: int = LPIPS_CROP) -
     xs = torch.clamp(torch.div(x0 + x1, 2, rounding_mode="floor") - cw // 2, 0, W - cw)
     iy = ys + torch.arange(ch, device=bm.device)
     ix = xs + torch.arange(cw, device=bm.device)
-    return stack[:, iy[:, None], ix[None, :]]
+    return tuple(s[:, iy[:, None], ix[None, :]] for s in stacks)
 
 
 def compute_losses_a(out, batch: TrainBatch, scaling_mean: torch.Tensor,
@@ -142,13 +142,14 @@ def compute_losses_a(out, batch: TrainBatch, scaling_mean: torch.Tensor,
     axis_loss = L.masked_l1(out.render_axis, batch.gt_normal, bm)
     ssim_val = L.ssim(out.render, batch.gt_image, bm) + L.ssim(out.normal, batch.gt_normal, bm)
     if lpips_fn is not None:
-        # zero outside the mask, then a static window centred on its bbox;
-        # both pairs ride one batched VGG pass
+        # zero outside the mask, then a static window centred on its bbox.
+        # The ground truth is stacked apart from the renders, so autograd
+        # records no backward for its half of the VGG trunk.
         bm3 = bm[..., None]
-        stack = torch.stack([out.render * bm3, batch.gt_image * bm3,
-                             out.normal * bm3, batch.gt_normal * bm3])
-        crop = _lpips_crop(stack, bm, lpips_crop)
-        lpips_val = lpips_fn(crop[0::2], crop[1::2]).sum()
+        rendered, gt = _lpips_crop((torch.stack([out.render * bm3, out.normal * bm3]),
+                                    torch.stack([batch.gt_image * bm3, batch.gt_normal * bm3])),
+                                   bm, lpips_crop)
+        lpips_val = lpips_fn(rendered, gt).sum()
     else:
         lpips_val = torch.zeros((), device=bm.device)
     tv = L.masked_tv_loss(out.render_alpha, out.normal)

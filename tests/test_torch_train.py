@@ -12,7 +12,10 @@ Tolerances, each stated where it is used:
   * the whole step: loss and metrics 1e-4 relative, each gradient leaf and
     the densify statistics within 1e-3 max|JAX| (the render chain runs in
     float32 on both sides with different reduction orders; measured errors
-    are near 1e-6 of the leaf's scale).
+    are near 1e-6 of the leaf's scale); with an LPIPS term, the term's own
+    share of each leaf (the gradient less the gradient without it) within
+    LPIPS' gradient tolerance: cosine above 0.99, norm 3e-2 relative;
+  * the port's LPIPS pairs apart against the four-image stack: the same bits.
 """
 import dataclasses
 
@@ -41,7 +44,7 @@ from mygauhuman_torch.eval.metrics import evaluate_images
 from mygauhuman_torch.models import gaussians as TG
 from mygauhuman_torch.models.mlps import init_lbs_offset, init_pose_refiner
 from mygauhuman_torch.ops.rasterize import RasterizerConfig
-from mygauhuman_torch.render import FrameInputs
+from mygauhuman_torch.render import FrameInputs, render_frame
 from mygauhuman_torch.train import losses as TL
 from mygauhuman_torch.train import optim as TO
 from mygauhuman_torch.train import trainer as TT
@@ -189,9 +192,12 @@ def test_lpips_crop_matches_jax():
     bm[5:30, 12:36] = 1
     stack = np.random.RandomState(6).rand(4, 48, 40, 3).astype(np.float32)
     for crop in (16, 32, 64):
-        want = JT._lpips_crop(jnp.asarray(stack), jnp.asarray(bm), crop)
-        got = TT._lpips_crop(t(stack), t(bm), crop)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        want = np.asarray(JT._lpips_crop(jnp.asarray(stack), jnp.asarray(bm), crop))
+        got, = TT._lpips_crop((t(stack),), t(bm), crop)
+        np.testing.assert_array_equal(got.numpy(), want)
+        # two stacks share the one window
+        a, b = TT._lpips_crop((t(stack[:1]), t(stack[1:])), t(bm), crop)
+        np.testing.assert_array_equal(np.concatenate([a.numpy(), b.numpy()]), want)
     masks = [bm, np.zeros((48, 40), np.float32)]
     assert TT.scene_lpips_crop(masks) == JT.scene_lpips_crop(masks)
     assert TT.scene_lpips_crop([t(bm)], pad=2, align=8) == JT.scene_lpips_crop([bm], 2, 8)
@@ -390,26 +396,37 @@ def scenes():
                                init_state=interop.gaussian_state(as_np(js.init_state), "cpu")), mlps
 
 
-def test_train_step_matches_jax(scenes):
+@pytest.mark.parametrize("with_lpips", [False, True], ids=["plain", "lpips"])
+def test_train_step_matches_jax(scenes, lp, with_lpips):
+    """With LPIPS: the same random VGG on a 40-pixel window of the 48-pixel
+    frame, the JAX trunk in bf16 and the port's in float32."""
     js, ts_scene, (jpose, jlbs) = scenes
     jcfg, cfg = JOptCfg(), OptimizationConfig()
     jts, _ = JT.create_train_state(jcfg, js.init_state, jpose, jlbs)
     jb = js.batches[0]
+    jp, tp = lp
+    crop = TT.scene_lpips_crop([b.bound_mask for b in ts_scene.batches], pad=2, align=8)
+    assert crop < jb.gt_image.shape[0]
+    jlpips_fn = (lambda a, b: jlpips.lpips_distance(jp, a, b)) if with_lpips else None
+    tlpips_fn = (lambda a, b: tlpips.lpips_distance(tp, a, b)) if with_lpips else None
 
-    def loss_fn(params, m2d):
-        out = jrender(jts.gauss._replace(params=params.gaussians), jb.camera, jb.frame,
-                      js.smpl_model, bg=jnp.zeros(3), active_sh_degree=1,
-                      mlp_params={"pose_refiner": params.pose_refiner,
-                                  "lbs_offset": params.lbs_offset},
-                      config=js.raster_config, means2d_offset=m2d)
-        alive = jts.gauss.alive.astype(jnp.float32)
-        sm = jnp.sum(JG.get_scaling(params.gaussians) * alive[:, None]) / jnp.maximum(
-            jnp.sum(alive) * 3, 1.0)
-        total, metrics = JT.compute_losses_a(out, jb, sm)
-        return total, (metrics, out.radii)
+    def jax_grads(lpips_fn):
+        def loss_fn(params, m2d):
+            out = jrender(jts.gauss._replace(params=params.gaussians), jb.camera, jb.frame,
+                          js.smpl_model, bg=jnp.zeros(3), active_sh_degree=1,
+                          mlp_params={"pose_refiner": params.pose_refiner,
+                                      "lbs_offset": params.lbs_offset},
+                          config=js.raster_config, means2d_offset=m2d)
+            alive = jts.gauss.alive.astype(jnp.float32)
+            sm = jnp.sum(JG.get_scaling(params.gaussians) * alive[:, None]) / jnp.maximum(
+                jnp.sum(alive) * 3, 1.0)
+            total, metrics = JT.compute_losses_a(out, jb, sm, lpips_fn, crop)
+            return total, (metrics, out.radii)
 
-    (_, (jm, jradii)), (jg, jg2d) = jax.jit(jax.value_and_grad(
-        loss_fn, argnums=(0, 1), has_aux=True))(JT.trainable_params(jts), jnp.zeros((256, 2)))
+        return jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1), has_aux=True))(
+            JT.trainable_params(jts), jnp.zeros((256, 2)))
+
+    (_, (jm, jradii)), (jg, jg2d) = jax_grads(jlpips_fn)
 
     tts, tx = TT.create_train_state(cfg, ts_scene.init_state,
                                     interop.tensor_tree(as_np(jpose), "cpu"),
@@ -419,10 +436,36 @@ def test_train_step_matches_jax(scenes):
                     TO.tree_leaves(TT.trainable_params(tts))):
         assert torch.equal(a, b)
     step = TT.make_train_step(ts_scene.smpl_model, tx, cfg, ts_scene.raster_config,
-                              bg=torch.zeros(3))
+                              bg=torch.zeros(3), lpips_fn=tlpips_fn, lpips_crop=crop)
     total, metrics, grads, g2d, radii = step.loss_and_grads(tts, ts_scene.batches[0], 1)
     for k in ("loss", "l1", "mask", "normal", "axis", "ssim", "tv", "scaling_mean", "psnr"):
         close(metrics[k], jm[k], 1e-4, 1e-7, k)
+    if with_lpips:
+        assert float(jm["lpips_term"]) > 0
+        np.testing.assert_allclose(float(metrics["lpips_term"]), float(jm["lpips_term"]),
+                                   rtol=3e-2)
+        # at 0.01 of the loss the term moves each gradient leaf by less than
+        # the step's 1e-3: hold its own share of every leaf, the gradient less
+        # the gradient without it, at the LPIPS gradient's tolerance
+        _, (jg0, jg2d0) = jax_grads(None)
+        plain = TT.make_train_step(ts_scene.smpl_model, tx, cfg, ts_scene.raster_config,
+                                   bg=torch.zeros(3))
+        _, _, g0, g2d0, _ = plain.loss_and_grads(tts, ts_scene.batches[0], 1)
+        shares = []
+        for a, a0, b, b0 in zip(TO.tree_leaves(grads) + [g2d], TO.tree_leaves(g0) + [g2d0],
+                                jax.tree_util.tree_leaves(jg) + [jg2d],
+                                jax.tree_util.tree_leaves(jg0) + [jg2d0]):
+            shares.append(((a - a0).numpy().ravel().astype(np.float64),
+                           (np.asarray(b) - np.asarray(b0)).ravel().astype(np.float64)))
+        largest = max(np.linalg.norm(dj) for _, dj in shares)
+        assert largest > 0
+        for i, (dt, dj) in enumerate(shares):
+            nt, nj = np.linalg.norm(dt), np.linalg.norm(dj)
+            if nj == 0:
+                assert nt <= 1e-6 * largest, f"LPIPS share of leaf {i}"
+                continue
+            assert dt @ dj / (nt * nj) > 0.99, f"LPIPS share of leaf {i}"
+            np.testing.assert_allclose(nt, nj, rtol=3e-2, err_msg=f"LPIPS share of leaf {i}")
     np.testing.assert_array_equal(radii.numpy(), np.asarray(jradii))
     jleaves = jax.tree_util.tree_leaves(jg)
     tleaves = TO.tree_leaves(grads)
@@ -535,3 +578,102 @@ def test_densify_event_resets_moments_and_loop_raises_on_nan(tscene, tmp_path, m
         TT.train_loop(ts2, tx, nan_step, tscene.batches,
                       dataclasses.replace(cfg, iterations=50), extent=tscene.extent,
                       smpl_vertices=tscene.big_pose_verts, max_sh_degree=0)
+
+
+# ---- the LPIPS term of the step -----------------------------------------------
+
+@pytest.fixture(scope="module")
+def rendered_view(tscene):
+    """A render of the small scene's first view and the view."""
+    ts, _ = _start(tscene, OptimizationConfig())
+    batch = tscene.batches[0]
+    with torch.no_grad():
+        out = render_frame(ts.gauss, batch.camera, batch.frame, tscene.smpl_model,
+                           bg=torch.zeros(3), active_sh_degree=0,
+                           mlp_params={"pose_refiner": ts.pose_refiner,
+                                       "lbs_offset": ts.lbs_offset},
+                           config=tscene.raster_config)
+    return out, batch
+
+
+_LOSS_INPUTS = ("render", "render_alpha", "normal", "render_axis")
+
+
+def _losses(rendered_view, lpips_fn, crop, fn=TT.compute_losses_a):
+    """(total, metrics, the images the losses read as leaves that take grad)."""
+    out, batch = rendered_view
+    leaves = [getattr(out, k).clone().requires_grad_(True) for k in _LOSS_INPUTS]
+    out = out._replace(**dict(zip(_LOSS_INPUTS, leaves)))
+    total, metrics = fn(out, batch, torch.tensor(0.25), lpips_fn, crop)
+    return total, metrics, leaves
+
+
+def _four_image_losses(out, batch, scaling_mean, lpips_fn, lpips_crop):
+    """compute_losses_a with both LPIPS pairs in one stack of four images,
+    ground truth included, cropped as one: the yardstick for the loss and
+    the gradients."""
+    bm = batch.bound_mask.float()
+    ll1 = TL.masked_l1(out.render, batch.gt_image, bm)
+    mask_loss = TL.masked_l2(out.render_alpha, batch.bkgd_mask.float(), bm)
+    normal_loss = TL.masked_l1(out.normal, batch.gt_normal, bm)
+    axis_loss = TL.masked_l1(out.render_axis, batch.gt_normal, bm)
+    ssim_val = TL.ssim(out.render, batch.gt_image, bm) + TL.ssim(out.normal, batch.gt_normal, bm)
+    bm3 = bm[..., None]
+    stack = torch.stack([out.render * bm3, batch.gt_image * bm3,
+                         out.normal * bm3, batch.gt_normal * bm3])
+    crop, = TT._lpips_crop((stack,), bm, lpips_crop)
+    lpips_val = lpips_fn(crop[0::2], crop[1::2]).sum()
+    tv = TL.masked_tv_loss(out.render_alpha, out.normal)
+    total = (ll1 + 0.1 * mask_loss + normal_loss + axis_loss + 0.01 * lpips_val
+             + 0.01 * (2.0 - ssim_val) + 0.01 * tv + scaling_mean)
+    return total, {"lpips_term": lpips_val.detach()}
+
+
+def test_lpips_ground_truth_pair_takes_no_grad(lp, rendered_view):
+    _, tp = lp
+    seen = []
+
+    def spy(a, b):
+        seen.append((a.requires_grad, b.requires_grad, tuple(a.shape), tuple(b.shape)))
+        return tlpips.lpips_distance(tp, a, b)
+
+    _losses(rendered_view, spy, 40)
+    assert seen == [(True, False, (2, 40, 40, 3), (2, 40, 40, 3))]
+
+
+def test_lpips_backward_runs_the_rendered_trunk_only(lp, rendered_view):
+    """One backward through the 13 VGG convolutions and 4 max-pools of the
+    rendered pair; SSIM's separable blurs (11-tap windows) are told apart
+    by the weight's shape."""
+    _, tp = lp
+    total, _, leaves = _losses(rendered_view, lambda a, b: tlpips.lpips_distance(tp, a, b), 40)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        torch.autograd.grad(total, leaves)
+    convs = [e.input_shapes[2] for e in prof.events() if e.name == "aten::convolution_backward"]
+    trunk = [w for w in convs if list(w[-2:]) == [3, 3]]
+    assert len(trunk) == 13
+    assert sorted({tuple(w) for w in convs} - {tuple(w) for w in trunk}) == [
+        (1, 1, 1, 11), (1, 1, 11, 1)]
+    pools = [e for e in prof.events() if e.name == "aten::max_pool2d_with_indices_backward"]
+    assert len(pools) == 4
+
+
+@pytest.mark.parametrize("crop", [40, 48], ids=["window", "whole_frame"])
+def test_lpips_pairs_apart_equal_the_four_image_stack(lp, rendered_view, crop):
+    """The loss and its gradients in the images are the same bits as with
+    the ground truth stacked among the renders."""
+    _, tp = lp
+
+    def lpips_fn(a, b):
+        return tlpips.lpips_distance(tp, a, b)
+
+    total, metrics, leaves = _losses(rendered_view, lpips_fn, crop)
+    want, want_metrics, want_leaves = _losses(rendered_view, lpips_fn, crop,
+                                              fn=_four_image_losses)
+    assert float(metrics["lpips_term"]) > 0
+    assert torch.equal(metrics["lpips_term"], want_metrics["lpips_term"])
+    assert torch.equal(total, want)
+    for name, g, w in zip(_LOSS_INPUTS, torch.autograd.grad(total, leaves),
+                          torch.autograd.grad(want, want_leaves)):
+        assert torch.equal(g, w), name
