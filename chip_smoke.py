@@ -1857,9 +1857,46 @@ def pbr_graph_phase(scene, train, dev, memo):
     return launches, ms
 
 
+def bake_face_check(args, dev, report):
+    """Kernel C tile-major on a bake face, at the main path's tile lists (every
+    Gaussian): of the camera's densest cell, the face with the most
+    instances, rendered as the sweep renders it, against its plain version
+    (`check_kernel_c`, its time and bound into `report`)."""
+    import torch
+
+    import mygauhuman_torch.ops.pallas_blend as pb
+    import mygauhuman_torch.ops.pallas_blend_bwd as pbb
+    from mygauhuman_torch.occlusion import baking
+    from mygauhuman_torch.ops.rasterize import rasterize
+
+    means, cov6, opac, _, alive = args
+    grid = baking.pc_to_grid(means, alive)
+    members = torch.bincount(grid.cell_of_point[alive], minlength=grid.occupied.numel())
+    cell = int(members.argmax())
+    cams = torch.as_tensor(baking.face_cameras(grid.centers[cell][None].cpu().numpy()),
+                           device=dev)
+    mask = alive & (grid.cell_of_point != cell)
+    calls = []
+    for f in range(6):
+        seen_f: dict = {}
+        with torch.no_grad(), capture(pb, "blend_tiles_raw", seen_f):
+            rasterize(means, cov6, opac, torch.zeros((means.shape[0], 1), device=dev),
+                      cams[0, f, 0], cams[0, f, 1], torch.zeros(1, device=dev), width=32,
+                      height=32, tan_fovx=1.0, tan_fovy=1.0,
+                      config=baking.bake_config(means.shape[0]), alive=mask)
+        calls.append(seen_f["blend_tiles_raw"])
+    (data, starts, counts, tile_base), kw = max(calls, key=lambda c: int(c[0][2].sum()))
+    require(kw.get("checkpoints") is False and kw["n_tiles"] == 4 and kw["n_channels"] == 1,
+            f"unexpected bake face call {kw}")
+    check_kernel_c(f"bake face 32x32 tile-major (cell {cell}, {int(members[cell])} "
+                   f"Gaussians inside)", data, starts, counts, tile_base,
+                   dict(kw, planar=False), pb, pbb, report=report, name="blend_fwd_tiles")
+
+
 def bake_graph_check(args, dev):
-    """One sweep of the first camera's bake (the first window of 128 cells)
-    as graph replays against the same cell program run slot by slot: the
+    """One sweep of the first camera's bake (the first window of 128 cells,
+    tile lists of every Gaussian, as the main path bakes) as graph replays
+    against the same cell program run slot by slot: the
     maps bit for bit (else the uint8 texels that differ, at most one step),
     n_uncovered equal, and the seconds of each (host clock, synchronised)."""
     import torch
@@ -1869,7 +1906,7 @@ def bake_graph_check(args, dev):
 
     means, cov6, opac, _, alive = args
     kw = dict(height=16, width=32, grid_res=10, max_cells=128, face_res=32,
-              config=baking.DEFAULT_BAKE_CONFIG)
+              config=baking.bake_config(means.shape[0]))
     vis0 = torch.ones((means.shape[0], 16, 32, 1), device=dev)
     out, sec = {}, {}
     for eager in (True, False, False, True):
@@ -1916,7 +1953,6 @@ def pbr_phase(dev, n_sm):
     from mygauhuman_torch.config import OptimizationConfig
     from mygauhuman_torch.occlusion import baking
     from mygauhuman_torch.ops import cuda_lib
-    from mygauhuman_torch.ops.rasterize import rasterize
     from mygauhuman_torch.pbr.light import export_envmap, prefilter_weight_set
     from mygauhuman_torch.train.checkpoint import load_checkpoint, restore_checkpoint_like
 
@@ -2038,31 +2074,8 @@ def pbr_phase(dev, n_sm):
         require(light_min >= 0.0, "a negative light texel")
         require(saved, f"chkpnt{end} differs from the live state")
 
-        # kernel C tile-major on a bake face: of the first camera's densest
-        # cell, the face with the most instances, rendered as the sweep does
         report: dict = {}
-        means, cov6, opac, _, alive = face["first_args"]
-        grid = baking.pc_to_grid(means, alive)
-        members = torch.bincount(grid.cell_of_point[alive], minlength=grid.occupied.numel())
-        cell = int(members.argmax())
-        cams = torch.as_tensor(baking.face_cameras(grid.centers[cell][None].cpu().numpy()),
-                               device=dev)
-        mask = alive & (grid.cell_of_point != cell)
-        calls = []
-        for f in range(6):
-            seen_f: dict = {}
-            with torch.no_grad(), capture(pb, "blend_tiles_raw", seen_f):
-                rasterize(means, cov6, opac, torch.zeros((means.shape[0], 1), device=dev),
-                          cams[0, f, 0], cams[0, f, 1], torch.zeros(1, device=dev), width=32,
-                          height=32, tan_fovx=1.0, tan_fovy=1.0,
-                          config=baking.DEFAULT_BAKE_CONFIG, alive=mask)
-            calls.append(seen_f["blend_tiles_raw"])
-        (data, starts, counts, tile_base), kw = max(calls, key=lambda c: int(c[0][2].sum()))
-        require(kw.get("checkpoints") is False and kw["n_tiles"] == 4 and kw["n_channels"] == 1,
-                f"unexpected bake face call {kw}")
-        check_kernel_c(f"bake face 32x32 tile-major (cell {cell}, {int(members[cell])} "
-                       f"Gaussians inside)", data, starts, counts, tile_base,
-                       dict(kw, planar=False), pb, pbb, report=report, name="blend_fwd_tiles")
+        bake_face_check(face["first_args"], dev, report)
         report["blend_fwd_tiles"]["launches_per_bake"] = [
             b["launches"].get("blend_fwd_tiles", 0) for b in bakes]
 

@@ -206,8 +206,9 @@ def main(argv=None) -> dict:
     the branch-A graphs (`graph`: `GraphedTrainStep.record()`, else None
     under --multichip on several ranks), Gaussians alive
     and capacity at the end, the densify events' counters, `phases`: the
-    run's `utils/profiling.py::PHASES` (eval, saves, state gathers and
-    densify events, `mgh.train.densify`), the
+    run's `utils/profiling.py::PHASES` (eval, saves, state gathers,
+    densify events, `mgh.train.densify`, and branch B's camera bakes,
+    `mgh.pbr.bake`), the
     final TrainState (`state`, whole on every rank), and
     with branch B its PbrState (`pbr_state`) and `pbr` {iterations,
     elapsed_s, bake_out_of_budget, graph: its `record()`, else None under

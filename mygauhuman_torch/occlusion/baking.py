@@ -27,9 +27,22 @@ not baked in (the program reads cell ids). The host syncs once per camera,
 for `bake_occlusion_full`'s occupied-cell count, and the callers read
 `out_of_budget` (a device tensor) once per bake.
 
-Deliberate difference from the JAX module: on CPU tensors the slots run
-eagerly, and only those whose cell is occupied (reading the flags costs a
-CPU nothing; the others' maps are masked out).
+Deliberate differences from the JAX module:
+  * on CPU tensors the slots run eagerly, and only those whose cell is
+    occupied (reading the flags costs a CPU nothing; the others' maps are
+    masked out);
+  * a face's tile lists hold every Gaussian (`bake_config(capacity)`): the
+    JAX module's lists of 256 per tile (`DEFAULT_BAKE_CONFIG`) dropped most
+    of what a face sees through a trained body (26,470 Gaussians: ~94% of
+    the instances of sampled faces, up to ~56,000 of one face, and texels
+    off by up to 255 of 255), where the reference rasterizer keeps every
+    one. Nothing is truncated: a face has 4 tiles, each Gaussian emits at
+    most one instance per tile.
+
+Spans and counters (utils/profiling.py): `mgh.pbr.sweep` around each
+`_bake_sweep` call; `COUNTERS["mgh.pbr.sweeps"]` and
+`COUNTERS["mgh.pbr.faces"]` count the sweeps and the faces they rasterize
+(every slot of the window on the card, the occupied ones on the CPU).
 """
 from __future__ import annotations
 
@@ -44,6 +57,7 @@ from mygauhuman_torch.device import device_constant
 from mygauhuman_torch.ops import cuda_lib
 from mygauhuman_torch.ops.rasterize import RasterizerConfig, rasterize
 from mygauhuman_torch.pbr.cubemap import dir_to_cube_uv, latlong_dirs
+from mygauhuman_torch.utils.profiling import COUNTERS, annotate
 
 
 class VoxelGrid(NamedTuple):
@@ -226,6 +240,7 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
     past the window end. On CUDA tensors the window runs as graph replays,
     unless `eager` (the same program, slot by slot, on the occupied ones)."""
     dev = means3d.device
+    COUNTERS["mgh.pbr.sweeps"] += 1
     grid = pc_to_grid(means3d, alive, grid_res)
     res3 = grid_res ** 3
     order = rank_cells(grid.occupied)
@@ -244,10 +259,13 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
                 torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev),
                 face_res=face_res, config=config)
         opacity_envs = _SWEEP_GRAPHS[key].run(win)
+        COUNTERS["mgh.pbr.faces"] += 6 * max_cells
     else:
         lookup = _latlong_lookup(height, width, face_res, dev)
         opacity_envs = torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev)
-        for k in torch.nonzero(cell_live).reshape(-1).tolist():
+        slots = torch.nonzero(cell_live).reshape(-1).tolist()
+        COUNTERS["mgh.pbr.faces"] += 6 * len(slots)
+        for k in slots:
             _bake_cell(win, lookup, opacity_envs,
                        torch.full((1,), k, dtype=torch.int64, device=dev), face_res=face_res,
                        config=config)
@@ -271,23 +289,31 @@ def _finalize(vis, world_normals, alive, height: int, width: int):
     return torch.where(dot_mask, vis, torch.zeros_like(vis)) * alive[:, None, None, None]
 
 
-DEFAULT_BAKE_CONFIG = RasterizerConfig(tile_capacity=256, chunk_tiles=4,
-                                       max_tiles_per_gaussian=4)
+def bake_config(capacity: int) -> RasterizerConfig:
+    """The bake's rasterizer settings for `capacity` Gaussian slots: tile
+    lists that hold every Gaussian (the module docstring says why)."""
+    return RasterizerConfig(tile_capacity=capacity, chunk_tiles=4, max_tiles_per_gaussian=4)
+
+
+#: the JAX module's bake lists, 256 instances a tile: the kernel tests' cap
+DEFAULT_BAKE_CONFIG = bake_config(256)
 
 
 def bake_occlusion(means3d, cov3d6, opacities, world_normals, alive, *, height: int = 16,
                    width: int = 32, grid_res: int = 10, max_cells: int = 128,
-                   face_res: int = 32, config: RasterizerConfig = DEFAULT_BAKE_CONFIG):
+                   face_res: int = 32, config: RasterizerConfig | None = None):
     """Single-sweep bake: per-Gaussian [cap, H, W, 1] visibility (1 - occluder
     opacity), masked by the normal hemisphere, and `out_of_budget`: alive
     Gaussians whose voxel fell beyond the max_cells budget and kept full
     visibility 1.0 (counted, never silent; a 0-d device tensor).
     `bake_occlusion_full` covers every cell. Runs without grad (the
-    reference bakes under no_grad, baking.py:230)."""
+    reference bakes under no_grad, baking.py:230). `config` defaults to
+    `bake_config` of the capacity."""
     max_cells = min(max_cells, grid_res ** 3)
     cap = means3d.shape[0]
+    config = config or bake_config(cap)
     vis0 = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
-    with torch.no_grad():
+    with torch.no_grad(), annotate("mgh.pbr.sweep"):
         vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis0, 0, height=height,
                                width=width, grid_res=grid_res, max_cells=max_cells,
                                face_res=face_res, config=config)
@@ -296,22 +322,24 @@ def bake_occlusion(means3d, cov3d6, opacities, world_normals, alive, *, height: 
 
 def bake_occlusion_full(means3d, cov3d6, opacities, world_normals, alive, *, height: int = 16,
                         width: int = 32, grid_res: int = 10, sweep_cells: int = 128,
-                        face_res: int = 32, config: RasterizerConfig = DEFAULT_BAKE_CONFIG):
+                        face_res: int = 32, config: RasterizerConfig | None = None):
     """Full-coverage bake (reference parity: every occupied voxel gets an
     opacity cubemap, baking.py:145-202): sweeps the ranked cell order in
     `sweep_cells`-sized windows until every occupied cell is baked. Returns
     (vis, out_of_budget, n_sweeps); out_of_budget (a 0-d device tensor) is 0
-    by construction."""
+    by construction. `config` defaults to `bake_config` of the capacity."""
     sweep_cells = min(sweep_cells, grid_res ** 3)
     cap = means3d.shape[0]
+    config = config or bake_config(cap)
     with torch.no_grad():
         n_occ = count_occupied(means3d, alive, grid_res)
         vis = torch.ones((cap, height, width, 1), dtype=torch.float32, device=means3d.device)
         n_sweeps = max(1, -(-n_occ // sweep_cells))
         for s in range(n_sweeps):
-            vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis, s * sweep_cells,
-                                   height=height, width=width, grid_res=grid_res,
-                                   max_cells=sweep_cells, face_res=face_res, config=config)
+            with annotate("mgh.pbr.sweep"):
+                vis, oob = _bake_sweep(means3d, cov3d6, opacities, alive, vis, s * sweep_cells,
+                                       height=height, width=width, grid_res=grid_res,
+                                       max_cells=sweep_cells, face_res=face_res, config=config)
         return _finalize(vis, world_normals, alive, height, width), oob, n_sweeps
 
 

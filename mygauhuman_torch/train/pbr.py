@@ -80,6 +80,7 @@ from mygauhuman_torch.train.optim import (
     tree_map,
 )
 from mygauhuman_torch.train.trainer import TrainBatch, TrainState, trainable_params
+from mygauhuman_torch.utils.profiling import PHASES, annotate
 from mygauhuman_torch.utils.transforms import rot_apply
 
 R_MAX, R_MIN = 1.0, 0.04   # roughness remap (train.py:233-235)
@@ -462,7 +463,12 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
     `ts` is this rank's share of the state (a `Sharded`) in and out, as
     `step_fn` and `callback` take it: the KNN neighbours and each bake read
     the gathered whole state, and a bake's cache keeps this rank's rows, so
-    `step_fn` gets the occlusion colour of its capacity slice."""
+    `step_fn` gets the occlusion colour of its capacity slice.
+
+    Spans (utils/profiling.py): `mgh.pbr.chunk` around each chunk's call,
+    and each camera's bake (its posing, sweeps and rounding) is the phase
+    `mgh.pbr.bake` of `PHASES`, which waits for the card at its start and
+    its end (the bake waits once anyway, for its occupied-cell count)."""
     host_rng = np.random.RandomState(seed + 7)
     dev = pbr_state.light["base"].device
     prefilter_w = prefilter_weight_set(pbr_state.light["base"].shape[1], dev)
@@ -490,19 +496,20 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
         nonlocal bake_oob_total
         if bi in occ_cache:
             return
-        w = whole(ts)
-        m, c6, op, wn = _pose_for_bake(w, batches[bi], smpl_model)
-        kw = dict(height=bake_height, width=bake_width)
-        if bake_full_coverage:
-            occ, oob, _ = baking.bake_occlusion_full(m, c6, op, wn, w.gauss.alive,
-                                                     sweep_cells=bake_max_cells, **kw)
-        else:
-            occ, oob = baking.bake_occlusion(m, c6, op, wn, w.gauss.alive,
-                                             max_cells=bake_max_cells, **kw)
-        bake_oob_total += int(oob)
-        occ = torch.round(occ * 255.0).to(torch.uint8)
-        occ_cache[bi] = occ if sharding is None else \
-            sharding.shard(occ, w.gauss.capacity).local
+        with PHASES.phase("mgh.pbr.bake", wait=True):
+            w = whole(ts)
+            m, c6, op, wn = _pose_for_bake(w, batches[bi], smpl_model)
+            kw = dict(height=bake_height, width=bake_width)
+            if bake_full_coverage:
+                occ, oob, _ = baking.bake_occlusion_full(m, c6, op, wn, w.gauss.alive,
+                                                         sweep_cells=bake_max_cells, **kw)
+            else:
+                occ, oob = baking.bake_occlusion(m, c6, op, wn, w.gauss.alive,
+                                                 max_cells=bake_max_cells, **kw)
+            bake_oob_total += int(oob)
+            occ = torch.round(occ * 255.0).to(torch.uint8)
+            occ_cache[bi] = occ if sharding is None else \
+                sharding.shard(occ, w.gauss.capacity).local
 
     def ensure_in_buffer(bi, keep: set) -> None:
         """Camera bi's map into a free slot of the buffer, or into the slot
@@ -546,9 +553,10 @@ def train_loop_pbr(ts: TrainState, pbr_state: PbrState, step_fn, batches: list,
                 idx.append(bi)
             for bi in idx:
                 ensure_in_buffer(bi, distinct)
-            ts, pbr_state, (mseq, n) = step_fn.chunk(
-                ts, pbr_state, views, occ_buf, knn3, prefilter_w, idx,
-                [slot_of[bi] for bi in idx], deg, pad_to=scan_chunk)
+            with annotate("mgh.pbr.chunk"):
+                ts, pbr_state, (mseq, n) = step_fn.chunk(
+                    ts, pbr_state, views, occ_buf, knn3, prefilter_w, idx,
+                    [slot_of[bi] for bi in idx], deg, pad_to=scan_chunk)
             for t in range(n):
                 metrics = {k: v[t] for k, v in mseq.items()}
                 metrics["bake_out_of_budget"] = bake_oob_total

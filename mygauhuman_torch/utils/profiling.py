@@ -12,9 +12,14 @@ inside a replay is told apart by its kernels' names.
 
 `PhaseTimer` accumulates wall-clock time per named phase, each phase also
 a span, and waits for the card at a phase's end when it is given a result
-to wait on. `PHASES` is the program's own: it counts the densify events
-(`mgh.train.densify`, met at most once per event) and `cli.train`'s eval,
-saves and state gathers.
+to wait on (and at its start too with `wait=True`). `PHASES` is the
+program's own: it counts the densify events (`mgh.train.densify`, met at
+most once per event), branch B's camera bakes (`mgh.pbr.bake`, one per
+camera, waited for at both ends) and `cli.train`'s eval, saves and state
+gathers. `COUNTERS`, beside it, counts work the phases hold:
+`mgh.pbr.sweeps` and `mgh.pbr.faces`, the bake's sweeps and the cube faces
+they rasterize (every slot of a sweep's window on the card, the occupied
+ones on the CPU).
 """
 from __future__ import annotations
 
@@ -53,7 +58,14 @@ class PhaseTimer:
         self.counts.clear()
 
     @contextlib.contextmanager
-    def phase(self, name: str, sync_on=None):
+    def phase(self, name: str, sync_on=None, wait: bool = False):
+        """Time the body as phase `name`; with `wait`, the card's queued work
+        is waited for before the clock starts and the body's work before it
+        stops (on a process that uses the card)."""
+        if wait:
+            sync_on = True
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
         with annotate(name):
             t0 = time.perf_counter()
             try:
@@ -78,3 +90,4 @@ class PhaseTimer:
 
 
 PHASES = PhaseTimer()
+COUNTERS: dict = defaultdict(int)
