@@ -98,7 +98,7 @@ Phases, each of which must pass (any failure exits non-zero):
      capture's warm-up), relit PSNR at 1,201 and 1,500; finite losses, a
      light >= 0, geometry and MLPs bit-equal to chkpnt1200, albedo and
      roughness learned, chkpnt1500 loaded back bit-equal; kernel C tile-major
-     on a bake face against its plain version; a branch-B step at chkpnt1200:
+     on a bake group's launch against its plain version; a branch-B step at chkpnt1200:
      kernels A, B, C (checkpoint mode) and D against their plain versions, no
      kernel B backward, the same step twice bit-equal; the step on the card
      against the CPU at 128^2; `cli.render --relight envmap_1500.npy`
@@ -178,7 +178,7 @@ Phases, each of which must pass (any failure exits non-zero):
      script's own seconds (`[total]`), a `kernels` JSON line (kernels A, B,
      C planar and tile-major, D1s and D2: `launches` from phase 7's graphed
      cli.train branch-B run, every number from phase 7's checks on a
-     branch-B step at chkpnt1200, C tile-major at a bake face; B's backward
+     branch-B step at chkpnt1200, C tile-major at a bake group; B's backward
      and D1, which branch B never launches: rank 0's launches in the 2-rank
      cli.train --multichip run, every number measured on rank 1's inputs of
      the sharded step; `launches_path` and `measured_on` name them; the
@@ -553,12 +553,16 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
                    ckpt_report=False, name="blend_fwd"):
     """Kernel C against its plain version on one captured call, its time and
     bound, and its checkpoint mode: the same output, the checkpoints equal
-    to D1's bit for bit and to the plain ones within CKPT_RTOL. The report
-    entry is `name`'s, with the TPU kernel of its layout."""
+    to D1's bit for bit and to the plain ones within CKPT_RTOL. A launch of
+    several images (`tiles_per_image` in kw: the bake's stacked faces) has
+    no checkpoint mode on the path, and D1 blends one image: its checkpoints
+    are not checked. The report entry is `name`'s, with the TPU kernel of
+    its layout."""
     import torch
 
     kw = {k: v for k, v in kw.items() if k != "checkpoints"}
     planar = kw["planar"]
+    one_image = kw.get("tiles_per_image") is None
     args = (data, starts, counts, tile_base)
     got = pb.blend_instances_cuda(*args, **kw)
     want = pb.blend_instances_plain(*args, **kw)
@@ -578,18 +582,20 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
     P = tw_ * th_
     tiles = dict(n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tw_, tile_h=th_)
     cot = torch.zeros((n_tiles, P, data.shape[0] - pb.HDR + 3), device=data.device)
-    ck_d1 = pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles)
-    ck_plain = pb.blend_fwd_checkpoints_plain(*args, **tiles)
-    torch.cuda.synchronize()
-    mism = pbb.checkpoint_mismatches(ck, ck_d1, counts)
-    require(not any(mism.values()), f"blend {label}: checkpoints differ from D1's: {mism}")
-    e = pbb.checkpoint_errors(ck._replace(chunk_sum=ck_plain.chunk_sum), ck_plain, counts)
-    require(e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0
-            and max(e["t_rel"], e["t_final_rel"]) <= CKPT_RTOL,
-            f"blend {label}: checkpoints vs plain {e}")
+    ms_d1, mism, e = None, {}, {}
+    if one_image:
+        ck_d1 = pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles)
+        ck_plain = pb.blend_fwd_checkpoints_plain(*args, **tiles)
+        torch.cuda.synchronize()
+        mism = pbb.checkpoint_mismatches(ck, ck_d1, counts)
+        require(not any(mism.values()), f"blend {label}: checkpoints differ from D1's: {mism}")
+        e = pbb.checkpoint_errors(ck._replace(chunk_sum=ck_plain.chunk_sum), ck_plain, counts)
+        require(e["n_chunks_equal"] and e["map_equal"] and e["stop_mismatch"] == 0
+                and max(e["t_rel"], e["t_final_rel"]) <= CKPT_RTOL,
+                f"blend {label}: checkpoints vs plain {e}")
+        ms_d1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles))
     ms = cuda_ms(lambda: pb.blend_instances_cuda(*args, **kw))
     ms_ck = cuda_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw))
-    ms_d1 = cuda_ms(lambda: pbb.blend_bwd_ckpt_cuda(*args, cot, **tiles))
     dms = device_ms(lambda: pb.blend_instances_cuda(*args, **kw), "blend_fwd")
     dms_ck = device_ms(lambda: pb.blend_instances_cuda(*args, checkpoints=True, **kw),
                        "blend_fwd")
@@ -600,10 +606,11 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
                            reps=3, warmup=1)
     n_busy = int((counts > 0).sum())
     n_chunks = int(ck.n_chunks)
+    d1 = f"; D1 on the same inputs {ms_d1:.4f} ms" if one_image else ""
     print(f"[kernel C blend_fwd] {label}: tiles {n_tiles} ({n_busy} with instances, longest "
           f"{int(counts.max())}), instances {int(counts.sum())}, C={C}, max abs err {err:.3e} "
           f"(depth row {err_depth:.3e}), kernel {ms:.4f} ms (device {fmt_ms(dms)}), checkpoint "
-          f"mode {ms_ck:.4f} ms (device {fmt_ms(dms_ck)}; D1 on the same inputs {ms_d1:.4f} ms), "
+          f"mode {ms_ck:.4f} ms (device {fmt_ms(dms_ck)}{d1}), "
           f"plain{' with the checkpoints' if ckpt_report else ''} {plain_ms:.4f} ms", flush=True)
     # the work these inputs need: pairs evaluated before each pixel stops,
     # ~20 fp32 ops each, plus 2 (C + 2) + 4 per included pair; the 7 + C
@@ -612,18 +619,21 @@ def check_kernel_c(label, data, starts, counts, tile_base, kw, pb, pbb, report=N
     # adds T per (chunk, pixel), stop and T_final per pixel of the busy tiles
     # and the slot map
     _, n_eval, n_incl, n_read = pb._blend_instances_plain(
-        *args, n_tiles=n_tiles, tiles_x=tiles_x, n_channels=C, tile_w=tw_, tile_h=th_)
+        *args, n_tiles=n_tiles, tiles_x=tiles_x, n_channels=C, tile_w=tw_, tile_h=th_,
+        tiles_per_image=kw.get("tiles_per_image"))
     ops = 20.0 * n_eval + (2.0 * (C + 2) + 4.0) * n_incl
     nbytes = (7 + C) * 4 * n_read + 8 * n_tiles + got.numel() * 4
     b_ms, b_by = bound(ops, nbytes)
     b_ck = bound(ops, nbytes + 4 * (n_chunks + 2 * n_busy) * P + 8 * n_chunks)
+    checked = (f"checkpoints vs D1: {sum(mism.values())} values differ; vs plain: stop "
+               f"mismatches off near-ties {e['stop_mismatch']}, near-ties {e['near_ties']}, "
+               f"T rel {e['t_rel']:.3e}, T_final rel {e['t_final_rel']:.3e}" if one_image
+               else "checkpoints not checked (several images)")
     print(f"[kernel C blend_fwd] {label} work: {n_eval} (pixel, instance) pairs "
           f"evaluated, {n_incl} included, {n_read} instances read, "
           f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB, bound {b_ms:.5f} ms ({b_by}); "
           f"checkpoint mode {n_chunks} chunk slots, bound {b_ck[0]:.5f} ms ({b_ck[1]}); "
-          f"checkpoints vs D1: {sum(mism.values())} values differ; vs plain: stop "
-          f"mismatches off near-ties {e['stop_mismatch']}, near-ties {e['near_ties']}, "
-          f"T rel {e['t_rel']:.3e}, T_final rel {e['t_final_rel']:.3e}", flush=True)
+          f"{checked}", flush=True)
     if report is not None:
         # ckpt_report: the checkpoint mode's time and bound (a training
         # step's forward) in place of the plain mode's
@@ -1858,45 +1868,53 @@ def pbr_graph_phase(scene, train, dev, memo):
 
 
 def bake_face_check(args, dev, report):
-    """Kernel C tile-major on a bake face, at the main path's tile lists (every
-    Gaussian): of the camera's densest cell, the face with the most
-    instances, rendered as the sweep renders it, against its plain version
+    """Kernel C tile-major as the bake launches it, at the main path's tile
+    lists (every Gaussian): of the first camera's first sweep, the group of
+    cells whose launch holds the most instances, its faces' tiles in one
+    launch as `occlusion/baking.py::_bake_cells` builds it (captured from
+    the eager run before a fresh graph capture), against its plain version
     (`check_kernel_c`, its time and bound into `report`)."""
     import torch
 
     import mygauhuman_torch.ops.pallas_blend as pb
     import mygauhuman_torch.ops.pallas_blend_bwd as pbb
     from mygauhuman_torch.occlusion import baking
-    from mygauhuman_torch.ops.rasterize import rasterize
 
     means, cov6, opac, _, alive = args
-    grid = baking.pc_to_grid(means, alive)
-    members = torch.bincount(grid.cell_of_point[alive], minlength=grid.occupied.numel())
-    cell = int(members.argmax())
-    cams = torch.as_tensor(baking.face_cameras(grid.centers[cell][None].cpu().numpy()),
-                           device=dev)
-    mask = alive & (grid.cell_of_point != cell)
-    calls = []
-    for f in range(6):
-        seen_f: dict = {}
-        with torch.no_grad(), capture(pb, "blend_tiles_raw", seen_f):
-            rasterize(means, cov6, opac, torch.zeros((means.shape[0], 1), device=dev),
-                      cams[0, f, 0], cams[0, f, 1], torch.zeros(1, device=dev), width=32,
-                      height=32, tan_fovx=1.0, tan_fovy=1.0,
-                      config=baking.bake_config(means.shape[0]), alive=mask)
-        calls.append(seen_f["blend_tiles_raw"])
-    (data, starts, counts, tile_base), kw = max(calls, key=lambda c: int(c[0][2].sum()))
-    require(kw.get("checkpoints") is False and kw["n_tiles"] == 4 and kw["n_channels"] == 1,
-            f"unexpected bake face call {kw}")
-    check_kernel_c(f"bake face 32x32 tile-major (cell {cell}, {int(members[cell])} "
-                   f"Gaussians inside)", data, starts, counts, tile_base,
-                   dict(kw, planar=False), pb, pbb, report=report, name="blend_fwd_tiles")
+    calls: list = []
+
+    def record(orig):
+        def run(*a, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                total = int(a[2].sum())
+                if not calls or total > calls[0][0]:
+                    calls[:] = [(total, [x.clone() if torch.is_tensor(x) else x for x in a],
+                                 dict(kw))]
+            return orig(*a, **kw)
+        return run
+
+    kw = dict(height=16, width=32, grid_res=10, max_cells=128, face_res=32,
+              config=baking.bake_config(means.shape[0]))
+    vis0 = torch.ones((means.shape[0], 16, 32, 1), device=dev)
+    with torch.no_grad(), patched(baking, "_SWEEP_GRAPHS", lambda _: {}), \
+            patched(baking, "blend_instances_cuda", record):
+        baking._bake_sweep(means, cov6, opac, alive, vis0, 0, **kw)
+    torch.cuda.synchronize()
+    groups = baking.cell_groups(128, means.shape[0], kw["config"])
+    _, (data, starts, counts, tile_base), ckw = calls[0]
+    n_faces = ckw["n_tiles"] // ckw["tiles_per_image"]
+    require(ckw.get("checkpoints", False) is False and ckw["tiles_per_image"] == 4
+            and n_faces == 6 * len(groups[0]) and ckw["n_channels"] == 1,
+            f"unexpected bake launch {ckw}")
+    check_kernel_c(f"bake group tile-major ({n_faces} faces of 32x32, {ckw['n_tiles']} tiles, "
+                   f"{len(groups)} groups a sweep)", data, starts, counts, tile_base,
+                   dict(ckw, planar=False), pb, pbb, report=report, name="blend_fwd_tiles")
 
 
 def bake_graph_check(args, dev):
     """One sweep of the first camera's bake (the first window of 128 cells,
-    tile lists of every Gaussian, as the main path bakes) as graph replays
-    against the same cell program run slot by slot: the
+    tile lists of every Gaussian, as the main path bakes) as the replay of
+    the batched program against the per-cell program run slot by slot: the
     maps bit for bit (else the uint8 texels that differ, at most one step),
     n_uncovered equal, and the seconds of each (host clock, synchronised)."""
     import torch
@@ -1922,8 +1940,8 @@ def bake_graph_check(args, dev):
     diff = (torch.round(ge * 255.0).to(torch.int16) - torch.round(ee * 255.0).to(torch.int16))
     n_diff, same = int((diff != 0).sum()), torch.equal(ge, ee)
     print(f"[bake-graph] one sweep of 128 cells (capacity {means.shape[0]}): graphed "
-          f"{', '.join(f'{x:.4f}' for x in sec[False])} s ({g_l} tile-major launches, replays "
-          f"of 6 faces each), eager {', '.join(f'{x:.4f}' for x in sec[True])} s ({e_l} "
+          f"{', '.join(f'{x:.4f}' for x in sec[False])} s ({g_l} tile-major launches, one "
+          f"a group of cells), eager {', '.join(f'{x:.4f}' for x in sec[True])} s ({e_l} "
           f"launches, the occupied cells only); maps bit-equal {same}, {n_diff} of "
           f"{diff.numel()} uint8 texels differ (max {int(diff.abs().max())}); n_uncovered "
           f"{gn} vs {en}", flush=True)
@@ -1936,7 +1954,7 @@ def pbr_phase(dev, n_sm):
     """Branch B through the entry points: cli.train resumes phase 6's
     chkpnt1200 for 300 branch-B iterations (4 bakes at capacity 32,768),
     then the run's checks, a branch-B step's kernels and bits, kernel C
-    tile-major on a bake face, one camera's bake on the card against the CPU
+    tile-major on a bake group's launch, one camera's bake on the card against the CPU
     (in a process of its own, beside the training), GPU vs CPU, and
     cli.render --relight with its timing. Returns (launches per path,
     report)."""
@@ -3678,10 +3696,10 @@ def main() -> None:
           "branch B / SMPL-X / multichip rank 0: " + "; ".join(lost), flush=True)
     # this slice's main path is branch B through cli.train, graphed (phase
     # 7): kernels A, B, C (planar in checkpoint mode, and tile-major at the
-    # bake faces) and D (D1s + D2) take `launches` from its 300 iterations
+    # bake groups) and D (D1s + D2) take `launches` from its 300 iterations
     # and 4 bakes, and every number from phase 7's checks on the inputs of a
-    # branch-B step at chkpnt1200 (C tile-major: a bake face of the first
-    # camera). Kernel B's backward, which branch B never launches, and D1
+    # branch-B step at chkpnt1200 (C tile-major: a bake group's launch of the
+    # first camera). Kernel B's backward, which branch B never launches, and D1
     # keep an earlier slice's main path, cli.train --multichip's 600
     # iterations on 2 ranks: rank 0's counts, each number measured on rank
     # 1's inputs of the sharded step. `launches_path` names the path of

@@ -6,7 +6,11 @@
 //   mygauhuman_tpu/ops/pallas_blend.py::_blend_kernel (entry
 //     blend_tiles_raw, tile-major [T, C+3, P] output),
 // selected here by the `planar` flag, with `tile_base` offsetting local
-// tile ids into a global tile grid for the pixel coordinates.
+// tile ids into a global tile grid for the pixel coordinates. A tile-major
+// launch may hold several images of `tiles_per_image` tiles each, one after
+// another (the occlusion bake's cube faces): a tile's pixel coordinates are
+// those of its index within its image. A launch of one image passes its
+// own tile count, so its tiles keep their coordinates.
 //
 // Input: the instance matrix data [D, ns] (rows x, y, conic xx/xy/yy,
 // opacity, depth, ones, then the features), each tile's contiguous slice
@@ -140,8 +144,8 @@ template <int NF4, bool CKPT>
 __global__ void __launch_bounds__(BLOCK, 4) blend_fwd_kernel(
     const float* __restrict__ data, int ns, const int* __restrict__ starts,
     const int* __restrict__ counts, int n_tiles, int n_sub, int tile_base,
-    int tiles_x, int C, int tile_w, int tile_h, int planar, int out_h,
-    int out_w, float* __restrict__ out, Checkpoints ck) {
+    int tiles_per_image, int tiles_x, int C, int tile_w, int tile_h, int planar,
+    int out_h, int out_w, float* __restrict__ out, Checkpoints ck) {
   constexpr int REC = 2 + NF4;   // float4s per staged instance
   extern __shared__ float4 s_rec[];   // [2][BATCH][REC]: two batches in turn
   __shared__ int s_red[BLOCK / 32];
@@ -152,7 +156,7 @@ __global__ void __launch_bounds__(BLOCK, 4) blend_fwd_kernel(
   const bool live = p < P;
   const int start = starts[t];
   const int count = max(counts[t], 0);
-  const int tg = tile_base + t;
+  const int tg = (tile_base + t) % tiles_per_image;
   const int lx = p % tile_w;
   const int ly = p / tile_w;
   const float px = static_cast<float>((tg % tiles_x) * tile_w + lx);
@@ -305,20 +309,20 @@ __global__ void __launch_bounds__(BLOCK, 4) blend_fwd_kernel(
 
 template <int NF4>
 void launch(const float* data, int ns, const int* starts, const int* counts,
-            int n_tiles, int tile_base, int tiles_x, int C, int tile_w,
-            int tile_h, int planar, int out_h, int out_w, float* out,
+            int n_tiles, int tile_base, int tiles_per_image, int tiles_x, int C,
+            int tile_w, int tile_h, int planar, int out_h, int out_w, float* out,
             const Checkpoints& ck, cudaStream_t stream) {
   const int n_sub = (tile_w * tile_h + BLOCK - 1) / BLOCK;
   const size_t smem = static_cast<size_t>(2 * BATCH) * (2 + NF4) * sizeof(float4);
   const dim3 grid(n_tiles * n_sub);
   if (ck.t_start != nullptr) {
     blend_fwd_kernel<NF4, true><<<grid, BLOCK, smem, stream>>>(
-        data, ns, starts, counts, n_tiles, n_sub, tile_base, tiles_x, C, tile_w,
-        tile_h, planar, out_h, out_w, out, ck);
+        data, ns, starts, counts, n_tiles, n_sub, tile_base, tiles_per_image, tiles_x,
+        C, tile_w, tile_h, planar, out_h, out_w, out, ck);
   } else {
     blend_fwd_kernel<NF4, false><<<grid, BLOCK, smem, stream>>>(
-        data, ns, starts, counts, n_tiles, n_sub, tile_base, tiles_x, C, tile_w,
-        tile_h, planar, out_h, out_w, out, ck);
+        data, ns, starts, counts, n_tiles, n_sub, tile_base, tiles_per_image, tiles_x,
+        C, tile_w, tile_h, planar, out_h, out_w, out, ck);
   }
 }
 
@@ -329,12 +333,12 @@ void launch(const float* data, int ns, const int* starts, const int* counts,
 // t_final [n_tiles, P], chunk_map [max_chunks] int2 and n_chunks [1].
 extern "C" int blend_fwd(const float* data, int ns, const int* starts,
                          const int* counts, int n_tiles, int tile_base,
-                         int tiles_x, int C, int tile_w, int tile_h,
+                         int tiles_per_image, int tiles_x, int C, int tile_w, int tile_h,
                          int planar, int out_h, int out_w, float* out,
                          int max_chunks, float* t_start, int* stop,
                          float* t_final, int* chunk_map, int* n_chunks,
                          cudaStream_t stream) {
-  if (C < 1 || C > MAX_C || tile_w * tile_h > 1024) {
+  if (C < 1 || C > MAX_C || tile_w * tile_h > 1024 || tiles_per_image < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Checkpoints ck{max_chunks, t_start, stop, t_final,
@@ -343,8 +347,9 @@ extern "C" int blend_fwd(const float* data, int ns, const int* starts,
     switch ((C + 4) / 4) {
 #define BLEND_FWD_CASE(nf4)                                                   \
   case nf4:                                                                   \
-    launch<nf4>(data, ns, starts, counts, n_tiles, tile_base, tiles_x, C,     \
-                tile_w, tile_h, planar, out_h, out_w, out, ck, stream);       \
+    launch<nf4>(data, ns, starts, counts, n_tiles, tile_base, tiles_per_image, \
+                tiles_x, C, tile_w, tile_h, planar, out_h, out_w, out, ck,     \
+                stream);                                                      \
     break;
       BLEND_FWD_CASE(1)
       BLEND_FWD_CASE(2)

@@ -12,25 +12,34 @@ JAX package's cells) and baked in windows of `max_cells` / `sweep_cells`
 ranks; `bake_occlusion_full` sweeps every occupied cell. A sweep is the
 JAX package's `_bake_sweep`: everything stays on the device (the window's
 cell ids from the ranked order, the six face cameras of each cell built
-from its center), and every slot of the window is baked by one cell
-program (`_bake_cell`: the six faces, each one `rasterize` call under
-no_grad with the bake's `RasterizerConfig`, then the nearest-texel
-lat-long lookup written into the window's maps). The scatter masks out the
-slots whose cell is not occupied. On CUDA tensors each face's blend is
-kernel C in tile-major mode (a 32-pixel face is not a whole number of the
-planar mode's 128-pixel rows), and a sweep is `max_cells` replays of one
-captured CUDA graph of the cell program, which advances a slot counter on
-the device: no host work between them. The graph is captured once per
+from its center), and the window's cells are baked by one batched program
+(`_bake_cells`) over all their faces at once, in `cell_groups` of cells
+sized from the capacity so that a group's instance slots stay within
+`GROUP_SLOTS`: the faces' projection with a leading face dimension (the
+elementwise arithmetic of `ops/projection.py::preprocess`), one binning
+of every face (`ops/binning.py::bin_faces`: each face's segment of the
+sorted keys is the tile lists its own `rasterize` would build), one blend
+of every face's tiles, and the nearest-texel lat-long lookup
+written into the window's maps. A slot whose cell is not occupied emits
+no instances, and the scatter masks its map out. On CUDA tensors the blend
+is kernel C in tile-major mode over the stacked faces (`tiles_per_image`:
+a 32-pixel face is not a whole number of the planar mode's 128-pixel
+rows), and a sweep is one replay of a CUDA graph of the whole window's
+program: one kernel C launch per group. The graph is captured once per
 (device, capacity, lat-long size, max_cells, face_res, config), after one
 eager run of the program, and kept for later bakes; the grid resolution is
 not baked in (the program reads cell ids). The host syncs once per camera,
 for `bake_occlusion_full`'s occupied-cell count, and the callers read
-`out_of_budget` (a device tensor) once per bake.
+`out_of_budget` (a device tensor) once per bake. The per-cell program
+(`_bake_cell`: the six faces, each one `rasterize` call under no_grad with
+the bake's `RasterizerConfig`) is `eager=True`, the one the batched
+program is held to bit for bit.
 
 Deliberate differences from the JAX module:
-  * on CPU tensors the slots run eagerly, and only those whose cell is
-    occupied (reading the flags costs a CPU nothing; the others' maps are
-    masked out);
+  * on CPU tensors the batched program runs eagerly, on the slots whose
+    cell is occupied only (reading the flags costs a CPU nothing; the
+    others' maps are masked out), its blend the plain one
+    (`ops/blend.py::blend` over the stacked faces' tiles);
   * a face's tile lists hold every Gaussian (`bake_config(capacity)`): the
     JAX module's lists of 256 per tile (`DEFAULT_BAKE_CONFIG`) dropped most
     of what a face sees through a trained body (26,470 Gaussians: ~94% of
@@ -42,7 +51,9 @@ Deliberate differences from the JAX module:
 Spans and counters (utils/profiling.py): `mgh.pbr.sweep` around each
 `_bake_sweep` call; `COUNTERS["mgh.pbr.sweeps"]` and
 `COUNTERS["mgh.pbr.faces"]` count the sweeps and the faces they rasterize
-(every slot of the window on the card, the occupied ones on the CPU).
+(every slot of the window on the card, the occupied ones on the CPU), and
+`COUNTERS["mgh.pbr.face_batches"]` the blend launches they take (one per
+group; 6 per cell in the per-cell program).
 """
 from __future__ import annotations
 
@@ -55,6 +66,10 @@ import torch
 from mygauhuman_torch.data.camera import projection_from_fov
 from mygauhuman_torch.device import device_constant
 from mygauhuman_torch.ops import cuda_lib
+from mygauhuman_torch.ops.binning import bin_faces, tile_dims
+from mygauhuman_torch.ops.blend import blend
+from mygauhuman_torch.ops.pallas_blend import attr_matrix, blend_instances_cuda
+from mygauhuman_torch.ops.projection import ProjectedGaussians, cov2d_from_view, screen_space
 from mygauhuman_torch.ops.rasterize import RasterizerConfig, rasterize
 from mygauhuman_torch.pbr.cubemap import dir_to_cube_uv, latlong_dirs
 from mygauhuman_torch.utils.profiling import COUNTERS, annotate
@@ -157,7 +172,7 @@ def rank_cells(occupied: torch.Tensor) -> torch.Tensor:
 
 
 class _Window(NamedTuple):
-    """The cell program's inputs for one sweep."""
+    """The bake programs' inputs for one sweep."""
 
     means3d: torch.Tensor         # [cap, 3]
     cov3d6: torch.Tensor          # [cap, 6]
@@ -165,6 +180,7 @@ class _Window(NamedTuple):
     alive: torch.Tensor           # [cap] bool
     cell_of_point: torch.Tensor   # [cap] int64
     cells: torch.Tensor           # [max_cells] int64: the window's cell ids
+    cell_live: torch.Tensor       # [max_cells] bool: whether each is occupied
     cams: torch.Tensor            # [max_cells, 6, 2, 4, 4]: their face cameras
 
 
@@ -197,33 +213,117 @@ def _bake_cell(win: _Window, lookup, envs: torch.Tensor, slot: torch.Tensor, *,
         envs.index_copy_(0, slot, faces[face, yi, xi][None])
 
 
+#: instance slots (6 faces x `capacity` Gaussians x `max_tiles_per_gaussian`
+#: a cell) one group of a sweep's cells may hold: at the pbr start's 32,768
+#: slots, 42 cells, so a sweep of 128 runs as 4 groups of 32 (the instance
+#: matrix alone is 36 bytes a slot)
+GROUP_SLOTS = 1 << 25
+
+
+def cell_groups(n_cells: int, capacity: int, config: RasterizerConfig) -> list:
+    """Ranges of equal size (the last one shorter) covering n_cells slots,
+    as few as keep each group's instance slots within GROUP_SLOTS."""
+    per_group = max(1, GROUP_SLOTS // (6 * capacity * config.max_tiles_per_gaussian))
+    n_groups = -(-n_cells // per_group)
+    size = -(-n_cells // n_groups) if n_cells else 1
+    return [range(g, min(g + size, n_cells)) for g in range(0, n_cells, size)]
+
+
+def _project_faces(means3d: torch.Tensor, cov3d6: torch.Tensor, cams: torch.Tensor,
+                   face_res: int) -> ProjectedGaussians:
+    """`ops/projection.py::preprocess` of every face camera cams [F, 2, 4,
+    4] (fov 90) at once: its outputs with a leading [F]. The same
+    elementwise operations; each product of the points with a face camera's
+    matrix sums one rounded product and exact zeros (`face_cameras_torch`),
+    so a batched product gives the per-face bits."""
+    w2c, full = cams[:, 0], cams[:, 1]
+
+    def view(m, rows):   # means3d @ m[rows, :3].T + m[rows, 3] per face: [F, N, len(rows)]
+        return torch.matmul(means3d, m[:, rows, :3].transpose(1, 2)) + m[:, None, rows, 3]
+
+    tan = 1.0                                                       # fov 90
+    focal = face_res / (2.0 * tan)
+    p_ndc = view(full, slice(0, 3)) / (view(full, slice(3, 4)) + 1e-7)
+    W = w2c[:, :3, :3].permute(1, 2, 0)[..., None]                  # [3, 3, F, 1]
+    cov2d = cov2d_from_view(view(w2c, slice(0, 3)), cov3d6, W, focal, focal, tan, tan)
+    return screen_space(view(w2c, slice(2, 3))[..., 0], p_ndc, cov2d, face_res, face_res)
+
+
+def _bake_cells(win: _Window, lookup, envs: torch.Tensor, slots: torch.Tensor, *,
+                face_res: int, config: RasterizerConfig) -> None:
+    """The batched program: for the cells in window slots `slots` ([n]
+    int64), the opacity cubemap of every alive Gaussian outside the cell
+    (none for a cell that is not occupied), as its nearest-texel lat-long
+    map in envs[slots]. Its F = 6 n faces run stacked, each exactly as
+    `_bake_cell` renders it: one projection, one binning of every face
+    (`ops/binning.py::bin_faces`: each face's segment is its own sorted
+    list), then one blend of all F faces' tiles (kernel C on the card, the
+    plain blend on the CPU)."""
+    n, cap, dev = slots.shape[0], win.means3d.shape[0], win.means3d.device
+    F, K = 6 * n, config.tile_capacity
+    tw, th = tile_dims(face_res, face_res, config.tile_w, config.tile_h)
+    if config.instance_capacity is not None:
+        raise ValueError("the batched bake keeps every instance: instance_capacity must be None")
+    proj = _project_faces(win.means3d, win.cov3d6,
+                          win.cams.index_select(0, slots).reshape(F, 2, 4, 4), face_res)
+    mask = (win.alive & (win.cell_of_point != win.cells.index_select(0, slots)[:, None])
+            & win.cell_live.index_select(0, slots)[:, None])
+    visible = proj.visible & mask[:, None].expand(n, 6, cap).reshape(F, cap)
+    lists = bin_faces(proj.means2d, proj.radii, proj.depths, visible, width=face_res,
+                      height=face_res, tile_w=config.tile_w, tile_h=config.tile_h,
+                      max_tiles_per_gaussian=config.max_tiles_per_gaussian)
+
+    means2d, conics = proj.means2d.reshape(F * cap, 2), proj.conics.reshape(F * cap, 3)
+    opacities = win.opacities.expand(F, cap).reshape(-1)
+    depths = proj.depths.reshape(-1)
+    zeros = depths.new_zeros((F * cap, 1))       # the one feature channel
+    if dev.type == "cuda":
+        data = attr_matrix(means2d, conics, opacities, depths, zeros, pad=False)
+        out = blend_instances_cuda(data.index_select(1, lists.src), lists.starts.to(torch.int32),
+                                   torch.clamp(lists.counts, max=K).to(torch.int32), 0,
+                                   n_tiles=F * tw * th, tiles_x=tw, n_channels=1,
+                                   tile_w=config.tile_w, tile_h=config.tile_h,
+                                   tiles_per_image=tw * th)
+        alpha = out[:, 1].reshape(F, th, tw, config.tile_h, config.tile_w)
+        alpha = alpha.permute(0, 1, 3, 2, 4).reshape(F, th * config.tile_h, tw * config.tile_w)
+        alpha = alpha[:, :face_res, :face_res]
+    else:
+        k = torch.arange(K, device=dev)[None, :]
+        pos = torch.clamp(lists.starts[:, None] + k, 0, lists.src.shape[0] - 1)
+        alpha = blend(lists.src[pos], k < lists.counts[:, None], means2d, conics, opacities,
+                      zeros, depths, depths.new_zeros((1,)), width=face_res, height=face_res,
+                      tile_w=config.tile_w, tile_h=config.tile_h,
+                      chunk_tiles=config.chunk_tiles, images=F).alpha
+    face_of, yi, xi = lookup
+    envs.index_copy_(0, slots, alpha.reshape(n, 6, face_res, face_res)[:, face_of, yi, xi])
+
+
 class _SweepGraph:
-    """The cell program of one key captured on the card: static copies of a
-    sweep's inputs, its maps, the slot counter the graph advances, and the
-    launches a replay makes."""
+    """The batched program of one key captured on the card, over every slot
+    of a window in `cell_groups`: static copies of a sweep's inputs, its
+    maps, and the launches a replay makes."""
 
     def __init__(self, win: _Window, lookup, envs: torch.Tensor, *, face_res: int,
                  config: RasterizerConfig):
         self.win = _Window(*(x.clone() for x in win))
         self.lookup, self.envs = lookup, envs
-        self.counter = torch.zeros(1, dtype=torch.int64, device=envs.device)
+        self.groups = cell_groups(envs.shape[0], win.means3d.shape[0], config)
 
         def program():
-            _bake_cell(self.win, self.lookup, self.envs, self.counter, face_res=face_res,
-                       config=config)
-            self.counter.add_(1)
+            for g in self.groups:
+                _bake_cells(self.win, self.lookup, self.envs,
+                            torch.arange(g.start, g.stop, device=self.envs.device),
+                            face_res=face_res, config=config)
 
         self.graph, _, self.launches = cuda_lib.capture_graph(
             program, program, torch.cuda.Stream(envs.device), torch.cuda.graph_pool_handle())
 
     def run(self, win: _Window) -> torch.Tensor:
-        """Every slot of the window: one replay each -> the maps."""
+        """Every slot of the window, in one replay -> the maps."""
         for dst, src in zip(self.win, win):
             dst.copy_(src)
-        self.counter.zero_()
-        for _ in range(self.envs.shape[0]):
-            self.graph.replay()
-            cuda_lib.count_replay(self.launches)
+        self.graph.replay()
+        cuda_lib.count_replay(self.launches)
         return self.envs
 
 
@@ -237,8 +337,10 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
     visibility maps into `vis_carry` [cap, H, W, 1] (un-masked: `_finalize`
     applies the hemisphere and alive masks once). Returns (vis, n_uncovered):
     n_uncovered (a device tensor) counts alive Gaussians whose cell ranks
-    past the window end. On CUDA tensors the window runs as graph replays,
-    unless `eager` (the same program, slot by slot, on the occupied ones)."""
+    past the window end. The window runs as the batched program (`_bake_cells`,
+    in `cell_groups`): on CUDA tensors one graph replay over every slot, on
+    CPU tensors eagerly over the occupied ones; `eager` runs the per-cell
+    program (`_bake_cell`) slot by slot on the occupied ones instead."""
     dev = means3d.device
     COUNTERS["mgh.pbr.sweeps"] += 1
     grid = pc_to_grid(means3d, alive, grid_res)
@@ -249,7 +351,7 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
     off = max(min(int(offset), res3 - max_cells), 0)
     cells = order[off:off + max_cells]
     cell_live = grid.occupied[cells]
-    win = _Window(means3d, cov3d6, opacities, alive, grid.cell_of_point, cells,
+    win = _Window(means3d, cov3d6, opacities, alive, grid.cell_of_point, cells, cell_live,
                   face_cameras_torch(grid.centers[cells]))
     if means3d.is_cuda and not eager:
         key = (dev, means3d.shape[0], height, width, max_cells, face_res, config)
@@ -260,15 +362,24 @@ def _bake_sweep(means3d, cov3d6, opacities, alive, vis_carry, offset: int, *, he
                 face_res=face_res, config=config)
         opacity_envs = _SWEEP_GRAPHS[key].run(win)
         COUNTERS["mgh.pbr.faces"] += 6 * max_cells
+        COUNTERS["mgh.pbr.face_batches"] += len(_SWEEP_GRAPHS[key].groups)
     else:
         lookup = _latlong_lookup(height, width, face_res, dev)
         opacity_envs = torch.zeros((max_cells, height, width), dtype=torch.float32, device=dev)
-        slots = torch.nonzero(cell_live).reshape(-1).tolist()
-        COUNTERS["mgh.pbr.faces"] += 6 * len(slots)
-        for k in slots:
-            _bake_cell(win, lookup, opacity_envs,
-                       torch.full((1,), k, dtype=torch.int64, device=dev), face_res=face_res,
-                       config=config)
+        slots = torch.nonzero(cell_live).reshape(-1)
+        COUNTERS["mgh.pbr.faces"] += 6 * slots.shape[0]
+        if eager:
+            COUNTERS["mgh.pbr.face_batches"] += 6 * slots.shape[0]
+            for k in slots.tolist():
+                _bake_cell(win, lookup, opacity_envs,
+                           torch.full((1,), k, dtype=torch.int64, device=dev),
+                           face_res=face_res, config=config)
+        else:
+            groups = cell_groups(slots.shape[0], means3d.shape[0], config)
+            COUNTERS["mgh.pbr.face_batches"] += len(groups)
+            for g in groups:
+                _bake_cells(win, lookup, opacity_envs, slots[g.start:g.stop],
+                            face_res=face_res, config=config)
 
     # every gaussian in a window cell inherits its cell's map
     g_rank = rank[grid.cell_of_point]

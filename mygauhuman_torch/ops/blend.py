@@ -100,33 +100,42 @@ def blend(
     tile_w: int = 16,
     tile_h: int = 16,
     chunk_tiles: int = 64,
+    images: int | None = None,
 ) -> BlendOutput:
     """Blend all tiles ([T, K] id lists) and assemble the image, chunk_tiles
-    tiles at a time so the [B, K, P] tensors stay bounded."""
+    tiles at a time so the [B, K, P] tensors stay bounded. With `images`,
+    tile_idx holds that many images' lists one after another ([images T,
+    K]), each image is blended in the chunks of one image, and every output
+    gains a leading [images] dimension."""
     tw = -(-width // tile_w)
     th = -(-height // tile_h)
     T = tw * th
-    if tile_idx.shape[0] != T:
-        raise ValueError(f"tile_idx has {tile_idx.shape[0]} tiles, image has {T}")
+    n = 1 if images is None else images
+    if tile_idx.shape[0] != n * T:
+        raise ValueError(f"tile_idx has {tile_idx.shape[0]} tiles, {n} images have {n * T}")
     C = features.shape[-1]
     means2d, conics, opacities, features, depths, bg = (
         t.float() for t in (means2d, conics, opacities, features, depths, bg))
 
     parts = []
-    for t0 in range(0, T, chunk_tiles):
-        tiles = torch.arange(t0, min(t0 + chunk_tiles, T), device=means2d.device)
-        idx = tile_idx[t0:t0 + chunk_tiles].long()
-        px, py = tile_pixels(tiles, tw, tile_w, tile_h)
-        color, w_sum, d_sum, final_t, _, _ = composite(
-            means2d[idx, 0], means2d[idx, 1], conics[idx, 0], conics[idx, 1],
-            conics[idx, 2], opacities[idx], depths[idx], features[idx],
-            tile_valid[t0:t0 + chunk_tiles], px, py)
-        color = color + final_t[..., None] * bg
-        parts.append(torch.cat([color, w_sum[..., None], d_sum[..., None],
-                                final_t[..., None]], dim=-1))
-    # [T, P, C + 3] -> [H, W, C + 3]
-    x = torch.cat(parts).reshape(th, tw, tile_h, tile_w, C + 3)
-    x = x.permute(0, 2, 1, 3, 4).reshape(th * tile_h, tw * tile_w, C + 3)
-    x = x[:height, :width]
+    for base in range(0, n * T, T):
+        for t0 in range(0, T, chunk_tiles):
+            tiles = torch.arange(t0, min(t0 + chunk_tiles, T), device=means2d.device)
+            rows = slice(base + t0, base + min(t0 + chunk_tiles, T))
+            idx = tile_idx[rows].long()
+            px, py = tile_pixels(tiles, tw, tile_w, tile_h)
+            color, w_sum, d_sum, final_t, _, _ = composite(
+                means2d[idx, 0], means2d[idx, 1], conics[idx, 0], conics[idx, 1],
+                conics[idx, 2], opacities[idx], depths[idx], features[idx],
+                tile_valid[rows], px, py)
+            color = color + final_t[..., None] * bg
+            parts.append(torch.cat([color, w_sum[..., None], d_sum[..., None],
+                                    final_t[..., None]], dim=-1))
+    # [n T, P, C + 3] -> [n, H, W, C + 3]
+    x = torch.cat(parts).reshape(n, th, tw, tile_h, tile_w, C + 3)
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(n, th * tile_h, tw * tile_w, C + 3)
+    x = x[:, :height, :width]
+    if images is None:
+        x = x[0]
     return BlendOutput(image=x[..., :C], alpha=x[..., C], depth=x[..., C + 1],
                        final_t=x[..., C + 2])

@@ -65,7 +65,7 @@ _SIGNATURES = {
                "deform_rows": [_PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR],
                "deform_rows_bwd": [_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _PTR,
                                    _PTR, _PTR, _PTR]},
-    "blend_fwd": {"blend_fwd": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT,
+    "blend_fwd": {"blend_fwd": [_PTR, _INT, _PTR, _PTR, _INT, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _INT, _PTR,
                                 _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]},
     "blend_bwd": {

@@ -79,10 +79,11 @@ def empty_checkpoints(ns, n_tiles, P, device) -> Checkpoints:
         n_chunks=torch.empty((1,), dtype=torch.int32, device=device))
 
 
-def attr_matrix(means2d, conics, opacities, depths, features) -> torch.Tensor:
-    """Component-major per-Gaussian attribute matrix [8 + ceil8(C), N]."""
+def attr_matrix(means2d, conics, opacities, depths, features, pad=True) -> torch.Tensor:
+    """Component-major per-Gaussian attribute matrix [8 + ceil8(C), N]
+    (with pad=False, [8 + C, N]: the feature rows kernel C reads)."""
     n, c = features.shape
-    c_pad = -(-c // 8) * 8 - c
+    c_pad = -(-c // 8) * 8 - c if pad else 0
     return torch.cat(
         [
             means2d.T,
@@ -123,13 +124,27 @@ def row_mode_supported(n_tiles: int, tiles_x: int, tile_w: int, tile_h: int) -> 
     return 0
 
 
+def _images_tiles(tile_base, n_tiles, tiles_per_image, planar=False) -> int:
+    """The tiles per image of a launch of tiles [tile_base, tile_base +
+    n_tiles): one image's own count where `tiles_per_image` is None; several
+    images only as a tile-major launch of whole images from tile 0."""
+    if tiles_per_image is None:
+        return max(int(tile_base) + n_tiles, 1)
+    if int(tile_base) + n_tiles > tiles_per_image and (
+            planar or tile_base or n_tiles % tiles_per_image):
+        raise ValueError("several images of tiles_per_image tiles take a tile-major launch "
+                         "of whole images from tile 0")
+    return int(tiles_per_image)
+
+
 def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
-                           n_channels, tile_w, tile_h, chunk_tiles=64):
+                           n_channels, tile_w, tile_h, chunk_tiles=64, tiles_per_image=None):
     """Tile-major [T, C+3, P] plain version, plus the work these inputs
     need: the (pixel, instance) pairs a sequential per-pixel loop evaluates
     before each pixel stops, the pairs it includes, and the instances that
     must be read (each tile's prefix up to the last one any pixel
-    evaluates)."""
+    evaluates). `tiles_per_image` as `blend_instances_cuda`'s."""
+    per_image = _images_tiles(tile_base, n_tiles, tiles_per_image)
     P = tile_w * tile_h
     C = n_channels
     ns = data.shape[1]
@@ -146,7 +161,7 @@ def _blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
         pos = torch.clamp(starts[t0:t1].long()[:, None] + k[None, :], 0, max(ns - 1, 0))
         valid = k[None, :] < cnt[:, None]
         cols = data[:, pos]                                # [D, B, K]
-        px, py = tile_pixels(torch.arange(t0, t1, device=dev) + tile_base,
+        px, py = tile_pixels((torch.arange(t0, t1, device=dev) + tile_base) % per_image,
                              tiles_x, tile_w, tile_h)
         color, w_sum, d_sum, final_t, evaluated, include = composite(
             cols[0], cols[1], cols[2], cols[3], cols[4], cols[5], cols[6],
@@ -242,13 +257,18 @@ def blend_fwd_checkpoints_plain(data, starts, counts, tile_base, *, n_tiles, til
 
 def blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                           n_channels, tile_w=16, tile_h=16, planar=False,
-                          checkpoints=False):
+                          checkpoints=False, tiles_per_image=None):
     """Plain PyTorch version of kernel C: tile-major [T, C+3, P] or, with
     planar=True, [C+3, (T / tiles_x) tile_h, tiles_x tile_w]; with
-    checkpoints=True, (that, blend_fwd_checkpoints_plain's Checkpoints)."""
+    checkpoints=True, (that, blend_fwd_checkpoints_plain's Checkpoints);
+    `tiles_per_image` as `blend_instances_cuda`'s (checkpoints of one
+    image only)."""
+    if _images_tiles(tile_base, n_tiles, tiles_per_image, planar) < tile_base + n_tiles \
+            and checkpoints:
+        raise ValueError("the plain checkpoints take one image")
     out, _, _, _ = _blend_instances_plain(
         data, starts, counts, tile_base, n_tiles=n_tiles, tiles_x=tiles_x,
-        n_channels=n_channels, tile_w=tile_w, tile_h=tile_h)
+        n_channels=n_channels, tile_w=tile_w, tile_h=tile_h, tiles_per_image=tiles_per_image)
     if planar:
         n_rows = n_tiles // tiles_x
         x = out.reshape(n_rows, tiles_x, n_channels + 3, tile_h, tile_w)
@@ -263,10 +283,15 @@ def blend_instances_plain(data, starts, counts, tile_base, *, n_tiles, tiles_x,
 
 def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                          n_channels, tile_w=16, tile_h=16, planar=False,
-                         checkpoints=False):
+                         checkpoints=False, tiles_per_image=None):
     """Launch kernel C; same outputs as blend_instances_plain (with
     checkpoints=True, the Checkpoints where blend_fwd_checkpoints_plain
-    defines them: slots < n_chunks; the chunk sums are left for D1s)."""
+    defines them: slots < n_chunks; the chunk sums are left for D1s). A
+    tile-major launch may blend several images of `tiles_per_image` tiles
+    one after another (tile_base 0): each tile takes the pixel coordinates
+    of its index within its image. A launch of one image passes the
+    image's tile count, or None: its tiles [tile_base, tile_base + n_tiles)
+    keep their coordinates either way."""
     P = tile_w * tile_h
     C = n_channels
     if not data.is_cuda or data.dtype != torch.float32 or data.dim() != 2:
@@ -282,6 +307,7 @@ def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
             raise ValueError(f"{name} must be [{n_tiles}] on {data.device}")
     if planar and n_tiles % tiles_x:
         raise ValueError("planar output needs whole tile rows")
+    tiles_per_image = _images_tiles(tile_base, n_tiles, tiles_per_image, planar)
     data = data.contiguous()
     starts = starts.to(torch.int32).contiguous()
     counts = counts.to(torch.int32).contiguous()
@@ -298,8 +324,8 @@ def blend_instances_cuda(data, starts, counts, tile_base, *, n_tiles, tiles_x,
                if checkpoints else (0, None, None, None, None, None))
     fn = cuda_lib.library("blend_fwd").blend_fwd
     err = fn(data.data_ptr(), data.shape[1], starts.data_ptr(), counts.data_ptr(),
-             n_tiles, int(tile_base), tiles_x, C, tile_w, tile_h, int(planar),
-             out_h, out_w, out.data_ptr(), *ck_ptrs,
+             n_tiles, int(tile_base), int(tiles_per_image), tiles_x, C, tile_w, tile_h,
+             int(planar), out_h, out_w, out.data_ptr(), *ck_ptrs,
              torch.cuda.current_stream(data.device).cuda_stream)
     cuda_lib.check("blend_fwd", err)
     cuda_lib.LAUNCHES["blend_fwd"] += 1

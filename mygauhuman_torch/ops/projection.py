@@ -44,6 +44,21 @@ def compute_cov2d(
 ) -> torch.Tensor:
     """cov2d = J W Sigma W^T J^T + 0.3 I -> [N, 3] (xx, xy, yy)."""
     t = means3d @ w2c[:3, :3].T + w2c[:3, 3]
+    return cov2d_from_view(t, cov3d6, w2c[:3, :3], focal_x, focal_y, tan_fovx, tan_fovy)
+
+
+def cov2d_from_view(
+    t: torch.Tensor,
+    cov3d6: torch.Tensor,
+    W: torch.Tensor,
+    focal_x: float,
+    focal_y: float,
+    tan_fovx: float,
+    tan_fovy: float,
+) -> torch.Tensor:
+    """`compute_cov2d` from the camera-space means t [..., 3] and the view
+    rotation W, each entry W[i, j] of which broadcasts against t[..., 0]: a
+    [3, 3] matrix for one camera, [3, 3, F, 1] for F cameras' [F, N, 3]."""
     tz = t[..., 2]
     limx = 1.3 * tan_fovx
     limy = 1.3 * tan_fovy
@@ -56,7 +71,6 @@ def compute_cov2d(
     j02 = -focal_x * tx * inv_tz2
     j11 = focal_y * inv_tz
     j12 = -focal_y * ty * inv_tz2
-    W = w2c[:3, :3]
     t00 = j00 * W[0, 0] + j02 * W[2, 0]
     t01 = j00 * W[0, 1] + j02 * W[2, 1]
     t02 = j00 * W[0, 2] + j02 * W[2, 2]
@@ -100,15 +114,21 @@ def preprocess(
     focal_y = image_height / (2.0 * tan_fovy)
 
     p_view_z = means3d @ w2c[2, :3] + w2c[2, 3]
-    in_front = p_view_z > 0.2
-
     p_ndc = project_points(means3d, full_proj)
+    cov2d = compute_cov2d(means3d, cov3d6, w2c, focal_x, focal_y, tan_fovx, tan_fovy)
+    return screen_space(p_view_z, p_ndc, cov2d, image_width, image_height)
+
+
+def screen_space(p_view_z: torch.Tensor, p_ndc: torch.Tensor, cov2d: torch.Tensor,
+                 image_width: int, image_height: int) -> ProjectedGaussians:
+    """The rest of `preprocess` from the view depths [...], the NDC points
+    [..., 3] and cov2d [..., 3]: elementwise, so leading camera dimensions
+    broadcast."""
+    in_front = p_view_z > 0.2
     means2d = torch.stack(
         [ndc2pix(p_ndc[..., 0], image_width), ndc2pix(p_ndc[..., 1], image_height)],
         dim=-1,
     )
-
-    cov2d = compute_cov2d(means3d, cov3d6, w2c, focal_x, focal_y, tan_fovx, tan_fovy)
     det = cov2d[..., 0] * cov2d[..., 2] - cov2d[..., 1] * cov2d[..., 1]
     det_ok = det != 0.0
     det_inv = 1.0 / torch.where(det_ok, det, torch.ones_like(det))

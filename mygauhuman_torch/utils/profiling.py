@@ -19,7 +19,10 @@ camera, waited for at both ends) and `cli.train`'s eval, saves and state
 gathers. `COUNTERS`, beside it, counts work the phases hold:
 `mgh.pbr.sweeps` and `mgh.pbr.faces`, the bake's sweeps and the cube faces
 they rasterize (every slot of a sweep's window on the card, the occupied
-ones on the CPU).
+ones on the CPU), and `mgh.pbr.face_batches`, the blend launches those
+faces take (kernel C on the card, plain-blend calls on the CPU: one per
+group of a sweep's cells, one per face in the per-cell program), so that
+faces over face batches reads the faces a launch blends.
 """
 from __future__ import annotations
 

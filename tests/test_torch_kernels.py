@@ -29,7 +29,11 @@ D1's order, so its checkpoints are held to D1's bit for bit, to the plain
 ones as D1's are, and the backward of D1s and D2 on them as kernel D.
 Kernel C tile-major at the occlusion bake's shapes (a 32 x 32 face, one
 channel, tile capacity 256) is held as at the other shapes, and the bake's
-rasterize on the card to the CPU's (alpha within 1e-4).
+rasterize on the card to the CPU's (alpha within 1e-4). Its launch of a
+bake's stacked faces (`tiles_per_image`) is each face's own launch bit for
+bit, and a launch of one image with its own tile count, at tile_base 0 or
+a strip's, is the launch it was; the batched bake sweep (one graph replay,
+one launch per group of cells) is the per-cell program bit for bit.
 """
 import numpy as np
 import pytest
@@ -589,11 +593,11 @@ def test_differentiated_forward_writes_checkpoints_and_backward_skips_d1(cuda):
     assert cuda_lib.LAUNCHES["blend_fwd"] == 1 and cuda_lib.LAUNCHES["blend_fwd_ckpt"] == 0
 
 
-def bake_face_inputs(device, n=16000, seed=9):
+def bake_face_inputs(device, n=16000, seed=9, face=4):
     """One cubemap face of the occlusion bake: a seeded body-sized cloud
-    seen from a cell center inside it by the bake's fov-90 face camera
-    (32 x 32, 1 zero channel, tile capacity 256, 4 tiles per Gaussian) ->
-    (instance data, kwargs, rasterize arguments)."""
+    seen from a cell center inside it by the bake's fov-90 camera of cube
+    face `face` (32 x 32, 1 zero channel, tile capacity 256, 4 tiles per
+    Gaussian) -> (instance data, kwargs, rasterize arguments)."""
     from mygauhuman_torch.occlusion.baking import DEFAULT_BAKE_CONFIG, face_cameras
 
     rng = np.random.RandomState(seed)
@@ -606,7 +610,7 @@ def bake_face_inputs(device, n=16000, seed=9):
     opac = torch.as_tensor((rng.rand(n) * 0.6 + 0.35).astype(np.float32), device=device)
     cams = torch.as_tensor(face_cameras(np.array([[0.02, 0.1, 0.03]], np.float32)),
                            device=device)
-    w2c, full = cams[0, 4, 0], cams[0, 4, 1]
+    w2c, full = cams[0, face, 0], cams[0, face, 1]
     cfg = DEFAULT_BAKE_CONFIG
     p = preprocess(means, cov6, w2c, full, 32, 32, 1.0, 1.0)
     bins = bin_gaussians(p.means2d, p.radii, p.depths, p.visible, width=32, height=32,
@@ -644,6 +648,56 @@ def test_blend_kernel_tile_major_at_bake_faces(cuda):
         ref = rasterize(*(a.cpu() for a in r["args"]), width=32, height=32, tan_fovx=1.0,
                         tan_fovy=1.0, config=r["config"]).alpha
     assert float((alpha.cpu() - ref).abs().max()) <= 1e-4
+
+
+def test_blend_kernel_face_batch_is_its_faces_launches_bit_for_bit(cuda):
+    """The bake's face-batched launch: the six faces of a cell, their
+    instance matrices side by side, in one tile-major launch of 24 tiles at
+    4 tiles an image, against each face's own launch, bit for bit, and
+    against the plain version of the same launch (1e-4; depth row 1e-3)."""
+    faces = [bake_face_inputs(cuda, face=f)[0] for f in range(6)]
+    offsets = np.cumsum([0] + [i.data.shape[1] for i in faces])
+    data = torch.cat([i.data for i in faces], dim=1)
+    starts = torch.cat([i.starts + int(o) for i, o in zip(faces, offsets)])
+    counts = torch.cat([i.counts for i in faces])
+    assert int(counts.max()) == 256 and int((counts > 0).sum()) >= 12
+    kw = dict(tiles_x=2, n_channels=1)
+    cuda_lib.reset_launches()
+    got = pb.blend_instances_cuda(data, starts, counts, 0, n_tiles=24, tiles_per_image=4, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["blend_fwd_tiles"] == 1
+    want = torch.cat([pb.blend_instances_cuda(i.data, i.starts, i.counts, 0, n_tiles=4, **kw)
+                      for i in faces])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(want[:, 1].max()) > 0.5
+    plain = pb.blend_instances_plain(data, starts, counts, 0, n_tiles=24, tiles_per_image=4,
+                                     **kw)
+    err = (got - plain).abs().movedim(1, 0).reshape(4, -1)
+    assert float(torch.cat([err[:2], err[3:]]).max()) <= 1e-4
+    assert float(err[2].max()) <= 1e-3
+    with pytest.raises(ValueError, match="whole images"):
+        pb.blend_instances_cuda(data, starts[:22], counts[:22], 0, n_tiles=22,
+                                tiles_per_image=4, **kw)
+
+
+@pytest.mark.parametrize("w,h", [(1224, 1024), (208, 144)])
+def test_blend_kernel_single_image_keeps_its_tiles(cuda, w, h):
+    """A tile-major launch of one image with its own tile count is the
+    launch without it, and a strip at tile_base (one tile row on) is the
+    whole image's launch from that tile, bit for bit."""
+    inst, kw = instance_inputs(cuda, w, h, C=3)
+    T, tw = kw["n_tiles"], kw["tiles_x"]
+    kw = dict(kw, planar=False)
+    whole = pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, 0, **kw)
+    own = pb.blend_instances_cuda(inst.data, inst.starts, inst.counts, 0, tiles_per_image=T,
+                                  **kw)
+    strip = pb.blend_instances_cuda(inst.data, inst.starts[tw:].contiguous(),
+                                    inst.counts[tw:].contiguous(), tw,
+                                    **dict(kw, n_tiles=T - tw), tiles_per_image=T)
+    torch.cuda.synchronize()
+    assert torch.equal(own, whole) and torch.equal(strip, whole[tw:])
+    assert float(whole[:, 3].max()) > 0.1
 
 
 @pytest.mark.parametrize("w,h", [(512, 512), (1224, 1024)])
@@ -1083,24 +1137,33 @@ def test_device_face_cameras_are_the_host_ones(cuda):
     np.testing.assert_array_equal(got, face_cameras(c))
 
 
-def test_graphed_bake_sweep_matches_eager_bit_for_bit(cuda):
+def graphed_sweeps_match_eager(cuda, config, face_res=32):
+    """Both windows of a 40-cell sweep over the cloud's 4^3 grid as the
+    graphed batched program against the per-cell program (`eager=True`),
+    bit for bit, then a sweep under `set_sync_debug_mode("error")` -> the
+    kernel C launches of that sweep and its groups."""
     from mygauhuman_torch.occlusion import baking
 
     means, cov6, opac, _, alive = bake_cloud(cuda)
     grid_res, max_cells = 4, 40
     n_occ = baking.count_occupied(means, alive, grid_res)
     assert max_cells < n_occ < 2 * max_cells   # the last window clamps and holds empty slots
-    kw = dict(height=16, width=32, grid_res=grid_res, max_cells=max_cells, face_res=32,
-              config=baking.DEFAULT_BAKE_CONFIG)
+    kw = dict(height=16, width=32, grid_res=grid_res, max_cells=max_cells, face_res=face_res,
+              config=config)
     vis0 = torch.ones((means.shape[0], 16, 32, 1), device=cuda)
+    groups = baking.cell_groups(max_cells, means.shape[0], config)
     for offset in (0, max_cells):
         want, want_n = baking._bake_sweep(means, cov6, opac, alive, vis0, offset, eager=True,
                                           **kw)
         cuda_lib.reset_launches()
+        graphs = len(baking._SWEEP_GRAPHS)
         got, got_n = baking._bake_sweep(means, cov6, opac, alive, vis0, offset, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want) and torch.equal(got_n, want_n), offset
-        assert cuda_lib.LAUNCHES["blend_fwd_tiles"] >= 6 * max_cells
+        assert not torch.equal(got, vis0)
+        # a sweep that captured the graph ran the program once before it
+        captured = len(baking._SWEEP_GRAPHS) - graphs
+        assert cuda_lib.LAUNCHES["blend_fwd_tiles"] == (1 + captured) * len(groups)
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
@@ -1109,4 +1172,24 @@ def test_graphed_bake_sweep_matches_eager_bit_for_bit(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["blend_fwd_tiles"] == 6 * max_cells    # replays only
+    return cuda_lib.LAUNCHES["blend_fwd_tiles"], groups
+
+
+def test_graphed_bake_sweep_matches_eager_bit_for_bit(cuda):
+    from mygauhuman_torch.occlusion import baking
+
+    launches, groups = graphed_sweeps_match_eager(cuda, baking.DEFAULT_BAKE_CONFIG)
+    assert len(groups) == 1 and launches == 1    # one replay, every face in one launch
+
+
+@pytest.mark.parametrize("face_res", [32, 16])
+def test_grouped_graphed_bake_sweep_matches_eager_bit_for_bit(cuda, monkeypatch, face_res):
+    """The same sweeps with GROUP_SLOTS cut to 12 cells a group (at the
+    lists of every instance): 4 groups of 10, one launch each, in one
+    replay; faces of 4 tiles and of one."""
+    from mygauhuman_torch.occlusion import baking
+
+    monkeypatch.setattr(baking, "_SWEEP_GRAPHS", {})
+    monkeypatch.setattr(baking, "GROUP_SLOTS", 6 * 3072 * 4 * 12)
+    launches, groups = graphed_sweeps_match_eager(cuda, baking.bake_config(3072), face_res)
+    assert [len(g) for g in groups] == [10] * 4 and launches == 4

@@ -9,7 +9,10 @@ Tolerances, each stated where it is used:
     centers 1e-6;
   * the bake's visibility before quantizing: 1e-5 (each face is one
     rasterize through the spec blend on both sides), the out-of-budget count
-    and the sweep count exact.
+    and the sweep count exact;
+  * the batched sweep, its faces' projection and binning, and kernel C's
+    plain version over stacked faces: bit for bit against the per-cell
+    program and each face's own calls.
 Sizes: 300 alive Gaussians at capacity 320, bake grid_res 3-4, face_res 16,
 latlong 8 x 16.
 """
@@ -241,6 +244,111 @@ def test_bake_sweep_with_a_clamped_window_matches_jax():
         *targs, grid_res=grid_res, sweep_cells=m, config=TCFG, **BAKE_KW)
     assert got_sweeps == want_sweeps == 2 and int(got_oob) == int(want_oob) == 0
     close(got, want)
+
+
+@pytest.mark.parametrize("offset,face_res,group_cells", [
+    (0, 16, None), (36, 16, None), (0, 32, None), (36, 32, None), (0, 32, 10), (36, 32, 4)],
+    ids=["first_16", "clamped_16", "first_32", "clamped_32", "grouped_first_32",
+         "grouped_clamped_32"])
+def test_batched_sweep_is_the_per_cell_program_bit_for_bit(offset, face_res, group_cells,
+                                                           monkeypatch):
+    """A sweep of 36 of the 64 cells (39 occupied) as the batched program
+    (`_bake_cells`: every face of the window's occupied cells projected,
+    binned in one sort and blended by one plain-blend call per group)
+    against the per-cell program (`eager=True`: one `rasterize` a face)
+    bit for bit: the first window, and the second, whose offset clamps to
+    28 and which holds 25 unoccupied cells; faces of 1 and 4 tiles; groups
+    of `group_cells` cells where GROUP_SLOTS is cut to hold that many."""
+    from mygauhuman_torch.utils.profiling import COUNTERS
+
+    cloud = _cloud(5)
+    args = [t(a) for a in cloud]
+    if group_cells:
+        monkeypatch.setattr(TBK, "GROUP_SLOTS", 6 * 320 * 4 * group_cells)
+    kw = dict(height=8, width=16, face_res=face_res, grid_res=4, max_cells=36, config=TCFG)
+    vis0 = torch.ones((320, 8, 16, 1))
+    want, want_n = TBK._bake_sweep(*args[:3], args[4], vis0, offset, eager=True, **kw)
+    COUNTERS.clear()
+    got, got_n = TBK._bake_sweep(*args[:3], args[4], vis0, offset, **kw)
+    assert torch.equal(got, want) and int(got_n) == int(want_n)
+    occupied = 36 if offset == 0 else 39 - 28
+    assert COUNTERS["mgh.pbr.faces"] == 6 * occupied
+    assert COUNTERS["mgh.pbr.face_batches"] == -(-occupied // (group_cells or occupied))
+    assert float((1.0 - got).max()) > 0.5
+
+
+def _window_faces(face_res, n_cells=5):
+    """The six faces of the first n_cells occupied cells of the cloud's 4^3
+    grid: (points, opacities, faces' projection as `_bake_cells` makes
+    it, alive & visible [F, N], face cameras [F, 2, 4, 4])."""
+    pts, cov6, opac, _, alive = [t(a) for a in _cloud(5)]
+    grid = TBK.pc_to_grid(pts, alive, 4)
+    cells = torch.nonzero(grid.occupied).reshape(-1)[:n_cells]
+    cams = TBK.face_cameras_torch(grid.centers[cells]).reshape(-1, 2, 4, 4)
+    proj = TBK._project_faces(pts, cov6, cams, face_res)
+    return pts, cov6, opac, proj, proj.visible & alive, cams
+
+
+@pytest.mark.parametrize("face_res", [16, 32])
+def test_bin_faces_is_each_faces_projection_and_bin_gaussians(face_res):
+    """The batched bake's projection of 30 stacked faces is `preprocess`
+    of each face bit for bit, and `bin_faces` of them is `bin_gaussians`
+    of each face alone (every instance kept): the same tile counts, and
+    each tile's slice of the sorted instances the same Gaussians in the
+    same order."""
+    from mygauhuman_torch.ops.binning import bin_faces, bin_gaussians
+    from mygauhuman_torch.ops.projection import preprocess
+
+    pts, cov6, _, proj, visible, cams = _window_faces(face_res)
+    F, N = visible.shape
+    S = TCFG.max_tiles_per_gaussian
+    lists = bin_faces(proj.means2d, proj.radii, proj.depths, visible, width=face_res,
+                      height=face_res, max_tiles_per_gaussian=S)
+    T = (face_res // 16) ** 2
+    assert lists.starts.shape == (F * T,) and lists.src.shape == (F * S * N,)
+    for f in range(F):
+        one = preprocess(pts, cov6, cams[f, 0], cams[f, 1], face_res, face_res, 1.0, 1.0)
+        for name, got in proj._asdict().items():
+            assert torch.equal(got[f], getattr(one, name)), (f, name)
+        b = bin_gaussians(one.means2d, one.radii, one.depths, visible[f], width=face_res,
+                          height=face_res, max_tiles_per_gaussian=S, tile_capacity=N)
+        assert torch.equal(lists.counts[f * T:(f + 1) * T], b.counts.long()), f
+        for tile in range(T):
+            s0, c, w0 = int(lists.starts[f * T + tile]), int(b.counts[tile]), int(b.starts[tile])
+            assert torch.equal(lists.src[s0:s0 + c] - f * N, b.sorted_gid[w0:w0 + c].long())
+    assert int(lists.counts.sum()) > 1000
+
+
+def test_plain_kernel_c_of_stacked_faces_is_each_faces_launch():
+    """Kernel C's plain version over 30 faces' tiles at 4 tiles an image
+    (`tiles_per_image`, the bake's launch) is each face's own 4-tile launch
+    bit for bit; a launch that does not hold whole images from tile 0, and
+    checkpoints of several images, are refused."""
+    from mygauhuman_torch.ops import pallas_blend as tpb
+    from mygauhuman_torch.ops.binning import bin_faces
+
+    _, _, opac, proj, visible, _ = _window_faces(32)
+    F, N = visible.shape
+    lists = bin_faces(proj.means2d, proj.radii, proj.depths, visible, width=32, height=32,
+                      max_tiles_per_gaussian=TCFG.max_tiles_per_gaussian)
+    data = tpb.attr_matrix(proj.means2d.reshape(-1, 2), proj.conics.reshape(-1, 3),
+                           opac.expand(F, N).reshape(-1), proj.depths.reshape(-1),
+                           torch.zeros((F * N, 1)), pad=False)[:, lists.src]
+    assert data.shape[0] == tpb.HDR + 1
+    kw = dict(tiles_x=2, n_channels=1)
+    got = tpb.blend_instances_plain(data, lists.starts, lists.counts, 0, n_tiles=4 * F,
+                                    tiles_per_image=4, **kw)
+    want = torch.cat([tpb.blend_instances_plain(data, lists.starts[4 * f:4 * f + 4],
+                                                lists.counts[4 * f:4 * f + 4], 0, n_tiles=4,
+                                                **kw) for f in range(F)])
+    assert torch.equal(got, want)
+    assert float(got[:, 1].max()) > 0.5
+    with pytest.raises(ValueError, match="whole images"):
+        tpb.blend_instances_plain(data, lists.starts[:6], lists.counts[:6], 0, n_tiles=6,
+                                  tiles_per_image=4, **kw)
+    with pytest.raises(ValueError, match="one image"):
+        tpb.blend_instances_plain(data, lists.starts, lists.counts, 0, n_tiles=4 * F,
+                                  tiles_per_image=4, checkpoints=True, **kw)
 
 
 def test_occlusion_color_matches_jax():

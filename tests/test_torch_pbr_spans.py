@@ -5,8 +5,10 @@
     (a view is baked on its first visit), `mgh.pbr.sweep` once per sweep of
     each bake and `mgh.pbr.chunk` once per chunk;
   * `PHASES` counts one `mgh.pbr.bake` per camera, and `COUNTERS` the
-    sweeps and the faces they rasterize (on the CPU, 6 per occupied cell of
-    each sweep's window), the same with or without the profiler;
+    sweeps, the faces they rasterize (on the CPU, 6 per occupied cell of
+    each sweep's window) and the blend calls those faces take (one a sweep
+    here: every window's faces in one group), the same with or without the
+    profiler;
   * the traced loop ends in the untraced loop's state bit for bit;
   * with no profiler running every span of the loop is the shared null
     context.
@@ -110,6 +112,7 @@ def test_phases_and_counters_count_bakes_sweeps_and_faces(loops):
     assert len(occupied) == 3 and min(occupied) > CELLS
     assert counters["mgh.pbr.sweeps"] == sum(-(-n // CELLS) for n in occupied)
     assert counters["mgh.pbr.faces"] == 6 * sum(occupied)
+    assert counters["mgh.pbr.face_batches"] == counters["mgh.pbr.sweeps"]
 
 
 def test_traced_loop_ends_in_the_untraced_state(loops):
